@@ -53,8 +53,9 @@ def predict_complex(raw: Dict, model: DeepInteract, device) -> Dict[str, np.ndar
 
     Returns float32 numpy arrays: ``contact_prob_map`` [n1, n2], ``logits``
     [n1, n2, 2], and the four representations, depadded (node feats
-    [n, C], edge feats [n, K, C])."""
+    [n, C], edge feats [n, K, C]). The model is put in eval mode."""
     device = resolve_device(device)
+    model.eval()
     set_backend_precision(model.cfg.gnn.compute_dtype)
     n1 = raw["graph1"]["node_feats"].shape[0]
     n2 = raw["graph2"]["node_feats"].shape[0]

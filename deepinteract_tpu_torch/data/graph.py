@@ -74,6 +74,11 @@ class PairedComplex:
     example_mask: Any
     contact_map: Any
 
+    @property
+    def pair_mask(self) -> torch.Tensor:
+        """[..., N1, N2] validity mask of the interaction map."""
+        return self.graph1.node_mask[..., :, None] & self.graph2.node_mask[..., None, :]
+
     def to(self, device) -> "PairedComplex":
         return PairedComplex(
             graph1=self.graph1.to(device), graph2=self.graph2.to(device),

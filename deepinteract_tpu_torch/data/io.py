@@ -10,7 +10,8 @@ with the JAX package, so the schema is identical (unpadded):
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import zipfile
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +48,25 @@ def load_complex_npz(path_or_file) -> Dict:
             "complex_name": (str(z["complex_name"])
                              if "complex_name" in z else ""),
         }
+
+
+def complex_lengths_from_file(path: str) -> Tuple[int, int]:
+    """(n1, n2) from the npy headers of a complex ``.npz`` alone, without
+    decompressing any array (bucket planning reads every file of a
+    dataset)."""
+    readers = {(1, 0): np.lib.format.read_array_header_1_0,
+               (2, 0): np.lib.format.read_array_header_2_0}
+    out = []
+    with zipfile.ZipFile(path) as z:
+        for member in ("g1_node_feats.npy", "g2_node_feats.npy"):
+            with z.open(member) as f:
+                reader = readers.get(tuple(np.lib.format.read_magic(f)))
+                if reader is None:  # an npy version without a header reader
+                    with z.open(member) as whole:
+                        out.append(int(np.lib.format.read_array(whole).shape[0]))
+                    continue
+                out.append(int(reader(f)[0][0]))
+    return out[0], out[1]
 
 
 def examples_to_contact_map(examples: np.ndarray, n1: int, n2: int) -> np.ndarray:

@@ -8,14 +8,15 @@ seed gives the same complex as the JAX package's generator.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from deepinteract_tpu_torch import constants
 from deepinteract_tpu_torch.data import features as F
 from deepinteract_tpu_torch.data.graph import PairedComplex
-from deepinteract_tpu_torch.data.io import to_paired_complex
+from deepinteract_tpu_torch.data.io import save_complex_npz, to_paired_complex
 
 
 def random_backbone(n: int, rng: np.random.Generator, origin=None) -> np.ndarray:
@@ -79,6 +80,31 @@ def random_raw_complex(n1: int, n2: int, rng: np.random.Generator,
     examples = np.stack([ii.ravel(), jj.ravel(), contact.ravel()],
                         axis=1).astype(np.int32)
     return {"graph1": raws[0], "graph2": raws[1], "examples": examples}
+
+
+def write_tiny_npz_dataset(root: str, n_complexes: int = 5, n1: int = 24, n2: int = 21,
+                           seed: int = 0, knn: int = 6, geo_nbrhd_size: int = 2,
+                           sizes: Optional[Sequence[Tuple[int, int]]] = None) -> None:
+    """Write a small on-disk DIPS-style dataset (``processed/`` npz tree
+    and split files) that ``cli.train --dips_root`` reads. All complexes
+    are in the train split; val and test hold the first one. With the
+    defaults it writes the same files as the JAX package's
+    ``write_tiny_npz_dataset``; ``sizes`` gives each complex its own
+    (n1, n2) instead (and then sets their number)."""
+    processed = os.path.join(root, "processed")
+    os.makedirs(processed, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    sizes = list(sizes) if sizes is not None else [(n1, n2)] * n_complexes
+    names = []
+    for i, (a, b) in enumerate(sizes):
+        raw = random_raw_complex(a, b, rng, knn=knn, geo_nbrhd_size=geo_nbrhd_size)
+        name = f"c{i}.npz"
+        save_complex_npz(os.path.join(processed, name), raw["graph1"], raw["graph2"],
+                         raw["examples"], complex_name=f"c{i}")
+        names.append(name)
+    for mode, sel in (("train", names), ("val", names[:1]), ("test", names[:1])):
+        with open(os.path.join(root, f"pairs-postprocessed-{mode}.txt"), "w") as f:
+            f.write("\n".join(sel) + "\n")
 
 
 def random_complex(

@@ -25,7 +25,7 @@ from torch import nn
 from deepinteract_tpu_torch import constants as C
 from deepinteract_tpu_torch.data.graph import ProteinGraph
 from deepinteract_tpu_torch.models import policy
-from deepinteract_tpu_torch.models.layers import MLP, FeatureNorm, GODense, ResBlock
+from deepinteract_tpu_torch.models.layers import MLP, Dropout, FeatureNorm, GODense, ResBlock
 from deepinteract_tpu_torch.ops import cuda_attention
 from deepinteract_tpu_torch.ops.attention import edge_attention
 
@@ -219,9 +219,11 @@ class PlainEdgeModule(nn.Module):
 
 
 def _dispatch_attention(cfg: GTConfig, q, k, v, proj_e, nbr_idx, edge_mask):
-    """Route the edge attention: the CUDA kernel for CUDA tensors in
-    scatter mode under 'auto', the plain op otherwise. Returns
-    (h_out, e_out)."""
+    """Route the edge attention: the CUDA kernels for CUDA tensors in
+    scatter mode under 'auto', the plain op otherwise. On the kernel path
+    an input that requires grad (with grad enabled) goes through
+    :class:`~deepinteract_tpu_torch.ops.cuda_attention.EdgeAttention` (K1
+    forward, K2 backward); otherwise K1 runs alone. Returns (h_out, e_out)."""
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "kernel" if q.is_cuda and cfg.attention_mode == "scatter" else "plain"
@@ -229,9 +231,11 @@ def _dispatch_attention(cfg: GTConfig, q, k, v, proj_e, nbr_idx, edge_mask):
         return edge_attention(q, k, v, proj_e, nbr_idx, edge_mask, mode=cfg.attention_mode)
     if cfg.attention_mode != "scatter":
         raise ValueError("the edge-attention kernel computes scatter mode only")
-    h_out, e_out, _ = cuda_attention.edge_attention_forward(
-        q, k, v, proj_e, nbr_idx.to(torch.int32).contiguous(),
-        edge_mask.to(torch.float32).contiguous())
+    args = (q, k, v, proj_e, nbr_idx.to(torch.int32).contiguous(),
+            edge_mask.to(torch.float32).contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:4]):
+        return cuda_attention.EdgeAttention.apply(*args)
+    h_out, e_out, _ = cuda_attention.edge_attention_forward(*args)
     return h_out, e_out
 
 
@@ -281,7 +285,7 @@ class GeometricTransformerLayer(nn.Module):
         self.norm1_node = FeatureNorm(cfg.norm_type, ch)
         self.norm1_edge = FeatureNorm(cfg.norm_type, ch)
         self.mha = MultiHeadGeometricAttention(cfg, update_edge_feats)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
         self.O_node = GODense(ch, ch)
         self.norm2_node = FeatureNorm(cfg.norm_type, ch)
         self.node_mlp = MLP(ch, cfg.dropout_rate)

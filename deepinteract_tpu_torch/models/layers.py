@@ -9,6 +9,9 @@ parameter tree across by path.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -44,31 +47,45 @@ class Conv2d(nn.Conv2d):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid elements of any number of leading axes.
+    """BatchNorm over the valid elements of any number of leading axes,
+    in float32 whatever the input dtype (eps 1e-5); padded rows come out
+    as zero.
 
-    Equivalent to torch ``BatchNorm1d`` in eval mode over the flattened
-    list of real nodes/edges: it normalizes with the running statistics
-    (eps 1e-5) in float32 whatever the input dtype, and padded rows come
-    out as zero. Training-mode batch statistics arrive with the training
-    port."""
+    Eval mode normalizes with the running statistics, as torch
+    ``BatchNorm1d`` in eval mode over the flattened list of real
+    nodes/edges. Train mode reproduces the JAX package's
+    ``MaskedBatchNorm`` exactly, including a count that differs from
+    ``BatchNorm1d``'s: the mask is broadcast over channels before it is
+    summed, so ``count = n_valid * C`` divides the per-channel sums.
+    Gradients flow through the batch statistics. The running statistics
+    move with momentum 0.1, the variance unbiased by count / (count - 1),
+    outside the autograd graph."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs in eval mode only: the port is "
-                "inference-only so far")
         xf = x.to(STATS_DTYPE)
         m = mask[..., None].to(STATS_DTYPE)
-        y = ((xf - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-             * self.weight + self.bias)
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            count = torch.clamp(m.sum() * x.shape[-1], min=1.0)  # n_valid * C
+            mean = (xf * m).sum(axes) / count
+            var = (m * (xf - mean) ** 2).sum(axes) / count
+            with torch.no_grad():
+                mom = self.momentum
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.running_mean.copy_((1 - mom) * self.running_mean + mom * mean)
+                self.running_var.copy_((1 - mom) * self.running_var + mom * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         # Zero padded slots: downstream code may read intermediate
         # features without re-masking.
         return (y * m).to(x.dtype)
@@ -118,6 +135,45 @@ class ResBlock(nn.Module):
         return x + h
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode keep each element with
+    probability 1 - p (uniform < 1 - p) and scale kept ones by 1 / (1 - p);
+    identity in eval mode or at p = 0. The mask comes from the module's
+    ``generator``, which :func:`dropout_rng` sets, never from torch's
+    global one, so a step is reproducible from its seed alone; without one
+    a train-mode call raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("train-mode dropout draws from an explicit generator: "
+                               "run the forward under layers.dropout_rng(model, generator)")
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@contextlib.contextmanager
+def dropout_rng(model: nn.Module, generator: torch.Generator):
+    """Inside the block, every :class:`Dropout` of ``model`` draws its
+    train-mode masks from ``generator`` (on the device of the
+    activations): the counterpart of flax's ``rngs={"dropout": key}``."""
+    drops = [m for m in model.modules() if isinstance(m, Dropout)]
+    for d in drops:
+        d.generator = generator
+    try:
+        yield generator
+    finally:
+        for d in drops:
+            d.generator = None
+
+
 class MLP(nn.Module):
     """Transformer FFN: Dense(2C, no bias) - SiLU - Dropout - Dense(C, no
     bias)."""
@@ -129,7 +185,7 @@ class MLP(nn.Module):
         super().__init__()
         self.fc1 = GODense(hidden, 2 * hidden, bias=False)
         self.fc2 = GODense(2 * hidden, hidden, bias=False)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(self.dropout(F.silu(self.fc1(x))))

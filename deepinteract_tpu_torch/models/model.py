@@ -57,7 +57,11 @@ class ModelConfig:
 class DeepInteract(nn.Module):
     """Siamese GT + interaction decoder. ``forward`` returns
     ``[B, L1, L2, num_classes]`` float32 logits and, optionally, the
-    learned node/edge representations."""
+    learned node/edge representations. In train mode (``.train()``) the
+    batch norms normalize with batch statistics and update their running
+    ones, and dropout draws from the generator that
+    ``layers.dropout_rng(model, generator)`` sets (``training.steps`` does
+    this)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()

@@ -12,9 +12,11 @@ exp(clip(+-5)) -> sum into destination`` as plain PyTorch.
   on symmetric kNN graphs.
 
 :func:`edge_attention_forward` is the fused scatter forward that the CUDA
-kernel computes (``ops/cuda_attention.py``), with the softmax denominator
-``z`` as a third output; it is the kernel's plain version, the CPU path,
-and what the kernel is held against on the card.
+kernel K1 computes (``ops/cuda_attention.py``), with the softmax
+denominator ``z`` as a third output; :func:`edge_attention_backward` is
+the explicit gradient of that forward that the CUDA kernel K2 computes.
+Each is its kernel's plain version, the CPU path, and what the kernel is
+held against on the card.
 """
 
 from __future__ import annotations
@@ -116,3 +118,60 @@ def edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask):
     e_out = (scaled * mask[..., None, None]).to(q.dtype)
     z_out = z[..., None].expand(b, n, h, d).reshape(b, n, h * d)
     return h_out, e_out, z_out
+
+
+def _inside_clip(x: torch.Tensor) -> torch.Tensor:
+    """Where a clip to +-5 passes its gradient: strictly inside, as the TPU
+    kernel's ``(x > -C) & (x < C)`` (``torch.clamp``'s autograd also passes
+    it at the bounds)."""
+    return (x > -CLIP) & (x < CLIP)
+
+
+def edge_attention_backward(q, k, v, proj_e, nbr_idx, edge_mask, h, z, dh, de=None):
+    """Gradient of :func:`edge_attention_forward`'s (h_out, e_out) with
+    respect to (q, k, v, proj_e), from the forward's residuals.
+
+    The math of ``_bwd_kernel`` in
+    ``deepinteract_tpu/ops/pallas_attention.py`` written out, not autograd
+    of the forward: the per-edge scores and weights are recomputed from
+    q/k/v/proj_e and the saved h [B, N, H, D] and z [B, N, H*D] (float32),
+    then with dst = nbr_idx[e] and src the row owner of e::
+
+      dnum = dh * 1 / (z + eps);  dZ = -sum_{d in head} h * dnum    (per dst)
+      dw   = sum_{d in head} dnum[dst] * v[src] + dZ[dst];  dl = dw * w
+      ds   = dl * 1{|sum_pre| < 5} (broadcast over D) + de * mask
+      dpe  = ds * c;  da = ds * pe * 1{|a| < 5} / sqrt(D)
+      dq[dst] += da * k[src];  dk[src] += da * q[dst];  dv[src] += w * dnum[dst]
+
+    dh [B, N, H, D] is h_out's cotangent (float32); de [B, N, K, H, D] is
+    e_out's, or None for a zero edge cotangent. Sums run in float32; the
+    four gradients come back in the input dtype, as ``_bwd`` returns them.
+    A node without in-edges has z = 0 and a finite 1 / eps, but no edge
+    reads its dnum, so it contributes exactly nothing."""
+    b, n, hh, d = q.shape
+    f32 = STATS_DTYPE
+    inv_sqrt_d = 1.0 / math.sqrt(d)
+    q_dst = _gather_nodes(q, nbr_idx).to(f32)          # [B,N,K,H,D]
+    k_src = k[:, :, None].to(f32)
+    v_src = v[:, :, None].to(f32)
+    pe = proj_e.to(f32)
+    mask = edge_mask.to(f32)
+    a = k_src * q_dst * inv_sqrt_d
+    c = torch.clamp(a, -CLIP, CLIP)
+    sum_pre = (c * pe).sum(-1)                          # [B,N,K,H]
+    w = torch.exp(torch.clamp(sum_pre, -CLIP, CLIP)) * mask[..., None]
+
+    dnum = dh.to(f32) * (1.0 / (z.reshape(b, n, hh, d) + EPS))  # [B,N,H,D]
+    dz = -(h.to(f32) * dnum).sum(-1)                    # [B,N,H]
+    dnum_dst = _gather_nodes(dnum, nbr_idx)
+    dw = (dnum_dst * v_src).sum(-1) + _gather_nodes(dz, nbr_idx)
+    dsum = torch.where(_inside_clip(sum_pre), dw * w, 0.0)
+    ds = dsum[..., None]
+    if de is not None:
+        ds = ds + de.to(f32) * mask[..., None, None]
+    dpe = ds * c
+    da = torch.where(_inside_clip(a), ds * pe, 0.0) * inv_sqrt_d
+    dq = _scatter_to_dst(da * k_src, nbr_idx)
+    dk = (da * q_dst).sum(2)
+    dv = (w[..., None] * dnum_dst).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpe.to(proj_e.dtype)

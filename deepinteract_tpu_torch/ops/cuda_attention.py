@@ -1,16 +1,20 @@
-"""Kernel K1: the fused scatter-mode edge-attention forward as CUDA C++.
+"""Kernels K1 and K2: the fused scatter-mode edge attention, forward and
+backward, as CUDA C++.
 
-Replaces the TPU kernel ``_kernel`` of
+K1 replaces the TPU kernel ``_kernel`` and K2 replaces ``_bwd_kernel`` of
 ``deepinteract_tpu/ops/pallas_attention.py`` (launched by
-``_pallas_forward``). The source is ``csrc/edge_attention_fwd.cu``; its
-header note gives the bound (bytes) and the design. It is compiled at
+``_pallas_forward`` / ``_pallas_backward``). The sources are
+``csrc/edge_attention_fwd.cu`` and ``csrc/edge_attention_bwd.cu``; their
+header notes give the bound (bytes) and the design. Each is compiled at
 first use by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface in ``deepinteract_tpu_torch/_build/`` and loaded with ctypes.
 
-:func:`edge_attention_forward` is the wrapper. For CPU tensors it runs the
-plain version, :func:`deepinteract_tpu_torch.ops.attention.
-edge_attention_forward`; for CUDA tensors it launches the kernel or
-raises. ``edge_attention_forward.launches`` counts kernel launches.
+:func:`edge_attention_forward` (K1) and :func:`edge_attention_backward`
+(K2) are the wrappers. For CPU tensors each runs its plain version in
+:mod:`deepinteract_tpu_torch.ops.attention`; for CUDA tensors it launches
+the kernel or raises. ``.launches`` on each counts kernel launches.
+:class:`EdgeAttention` joins them under ``torch.autograd``, as
+``edge_attention_pallas``'s ``custom_vjp`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,19 +28,24 @@ import time
 from pathlib import Path
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from deepinteract_tpu_torch.ops.attention import (
-    edge_attention_forward as plain_edge_attention_forward,
-)
+from deepinteract_tpu_torch.ops import attention as plain
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "edge_attention_fwd.cu"
+SOURCES = {path.stem: path for path in sorted((_PKG / "csrc").glob("*.cu"))}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_LANES = 1024
 
-_lib = None
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+# C entry point of each library: (symbol, argument types).
+_ENTRY = {
+    "edge_attention_fwd": ("di_edge_attention_fwd", [_ptr] * 9 + [_int] * 6 + [_ptr]),
+    "edge_attention_bwd": ("di_edge_attention_bwd", [_ptr] * 15 + [_int] * 6 + [_ptr]),
+}
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -47,49 +56,89 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the edge-attention kernel")
+                       "the edge-attention kernels")
+
+
+def _digest() -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name, path in SOURCES.items():
+        h.update(name.encode() + path.read_bytes())
+    return h.hexdigest()[:12]
 
 
 def build() -> dict:
-    """Compile the kernel library if it is not built yet.
+    """Compile every kernel library under ``csrc/`` that is not built yet,
+    one ``nvcc`` per source, all started together.
 
-    The library's name carries a hash of the source and flags, so an
-    edited source is rebuilt. Returns ``{"path", "seconds", "log"}``:
-    ``seconds`` is 0.0 and ``log`` empty when a built library was found;
-    ``log`` holds nvcc's output (with ``-Xptxas -v``: registers, shared
-    memory, spills)."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"edge_attention_fwd-{digest}.so"
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+    Library names carry a hash of all sources and flags, so any edited
+    source rebuilds them all. Returns ``{name: {"path", "seconds",
+    "log"}}``: ``seconds`` is 0.0 and ``log`` empty for a library that was
+    found built; ``log`` holds nvcc's output (with ``-Xptxas -v``:
+    registers, shared memory, spills). Raises if any build fails."""
+    digest = _digest()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    out, running = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{log}")
-    os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
-    return {"path": str(out), "seconds": seconds, "log": log}
+    for name, source in SOURCES.items():
+        path = BUILD_DIR / f"{name}-{digest}.so"
+        out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+        if not path.exists():
+            tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            running[name] = (proc, tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in running.items():
+        log, _ = proc.communicate()
+        out[name].update(seconds=time.perf_counter() - t0, log=log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {SOURCES[name].name}:\n{log}")
+        else:
+            os.replace(tmp, path)  # atomic: concurrent builders never load a torn file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        fn = lib.di_edge_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _library(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build()[name]["path"])
+        symbol, argtypes = _ENTRY[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.di_cuda_error_string.argtypes = [ctypes.c_int]
         lib.di_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel library ``name``'s C entry point on ``device``'s current
+    stream; raise if the launch was refused."""
+    lib = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, _ENTRY[name][0])(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.di_cuda_error_string(status).decode()}")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_inputs(q, k, v, proj_e, nbr_idx, edge_mask) -> None:
@@ -99,21 +148,12 @@ def _check_inputs(q, k, v, proj_e, nbr_idx, edge_mask) -> None:
         raise ValueError(f"q must be [B, N, H, D], got {tuple(q.shape)}")
     b, n, h, d = q.shape
     kk = nbr_idx.shape[-1]
-    expected = {
-        "k": (k, (b, n, h, d), q.dtype), "v": (v, (b, n, h, d), q.dtype),
-        "proj_e": (proj_e, (b, n, kk, h, d), q.dtype),
-        "nbr_idx": (nbr_idx, (b, n, kk), torch.int32),
-        "edge_mask": (edge_mask, (b, n, kk), torch.float32),
-    }
-    for name, (t, shape, dtype) in expected.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    for name, t in (("q", q), *((n_, t) for n_, (t, _, _) in expected.items())):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    for name, t, shape, dtype in (
+            ("q", q, (b, n, h, d), q.dtype), ("k", k, (b, n, h, d), q.dtype),
+            ("v", v, (b, n, h, d), q.dtype), ("proj_e", proj_e, (b, n, kk, h, d), q.dtype),
+            ("nbr_idx", nbr_idx, (b, n, kk), torch.int32),
+            ("edge_mask", edge_mask, (b, n, kk), torch.float32)):
+        _check(name, t, shape, dtype, q.device)
     if d > 32 or d & (d - 1):
         raise ValueError(f"head dim {d} must be a power of two <= 32 (a "
                          "head's lanes must sit in one warp)")
@@ -121,49 +161,115 @@ def _check_inputs(q, k, v, proj_e, nbr_idx, edge_mask) -> None:
         raise ValueError(f"H*D = {h * d} exceeds {MAX_LANES} lanes")
 
 
+def _outputs(out, specs, device):
+    """Allocate the outputs ``specs`` ((shape, dtype), ...), or check the
+    caller's buffers against them."""
+    if out is None:
+        return tuple(torch.empty(s, dtype=dt, device=device) for s, dt in specs)
+    for t, (s, dt) in zip(out, specs):
+        _check("output buffer", t, s, dt, device)
+    return tuple(out)
+
+
 def edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask, out=None):
-    """Fused scatter-mode edge-attention forward, in the layout of
+    """K1: fused scatter-mode edge-attention forward, in the layout of
     ``_pallas_forward``: q/k/v [B, N, H, D] and proj_e [B, N, K, H, D]
     (float32 or bfloat16), nbr_idx [B, N, K] int32, edge_mask [B, N, K]
     float32. Returns (h [B, N, H, D] float32, e_out [B, N, K, H, D] in the
     input dtype, z [B, N, H*D] float32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (inference only: the backward kernel is not ported). ``out``
-    optionally gives the three output buffers on the card (a check can
-    pre-fill them with NaN, so that an element the kernel leaves unwritten
-    shows)."""
+    raise. The outputs carry no autograd history: with grad enabled and an
+    input that requires grad, a CUDA call raises, and
+    :class:`EdgeAttention` is the differentiable entry. ``out`` optionally
+    gives the three output buffers on the card (a check can pre-fill them
+    with NaN, so that an element the kernel leaves unwritten shows)."""
     if not _on_cuda(q):
-        return plain_edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask)
-    if any(t.requires_grad for t in (q, k, v, proj_e)):
-        raise NotImplementedError(
-            "edge_attention_forward is inference-only on CUDA: the backward "
-            "kernel K2 (deepinteract_tpu/ops/pallas_attention.py::_bwd_kernel) "
-            "is not ported yet")
+        return plain.edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, proj_e)):
+        raise RuntimeError("edge_attention_forward gives no gradients: use "
+                           "EdgeAttention.apply for inputs that require grad")
     _check_inputs(q, k, v, proj_e, nbr_idx, edge_mask)
     b, n, h, d = q.shape
     kk = nbr_idx.shape[-1]
-    shapes = (((b, n, h, d), torch.float32), ((b, n, kk, h, d), q.dtype),
-              ((b, n, h * d), torch.float32))
-    if out is None:
-        out = tuple(torch.empty(s, dtype=dt, device=q.device) for s, dt in shapes)
-    for t, (s, dt) in zip(out, shapes):
-        if tuple(t.shape) != s or t.dtype != dt or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"output buffer must be contiguous {dt} {s} on {q.device}")
-    h_out, e_out, z_out = out
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.di_edge_attention_fwd(
+    h_out, e_out, z_out = _outputs(out, (((b, n, h, d), torch.float32),
+                                         ((b, n, kk, h, d), q.dtype),
+                                         ((b, n, h * d), torch.float32)), q.device)
+    _launch("edge_attention_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), proj_e.data_ptr(),
             nbr_idx.data_ptr(), edge_mask.data_ptr(), h_out.data_ptr(),
             e_out.data_ptr(), z_out.data_ptr(), b, n, kk, h, d,
-            int(q.dtype == torch.bfloat16), stream)
-    if status != 0:
-        raise RuntimeError("edge-attention kernel launch failed: "
-                           f"{lib.di_cuda_error_string(status).decode()}")
+            int(q.dtype == torch.bfloat16))
     edge_attention_forward.launches += 1
     return h_out, e_out, z_out
 
 
 edge_attention_forward.launches = 0
+
+
+def edge_attention_backward(q, k, v, proj_e, nbr_idx, edge_mask, h, z, dh, de=None,
+                            out=None):
+    """K2: gradient of K1's (h, e_out) with respect to (q, k, v, proj_e),
+    in the layout of ``_pallas_backward``: the forward's inputs, its
+    residuals h [B, N, H, D] and z [B, N, H*D] (float32), the cotangents
+    dh [B, N, H, D] (float32) and de [B, N, K, H, D] (input dtype; None
+    means zero, and the kernel then reads none). Returns (dq, dk, dv, dpe)
+    in the input dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (two
+    passes, one count) or raise. ``out`` optionally gives the four output
+    buffers on the card."""
+    if not _on_cuda(q):
+        return plain.edge_attention_backward(q, k, v, proj_e, nbr_idx, edge_mask, h, z,
+                                             dh, de)
+    _check_inputs(q, k, v, proj_e, nbr_idx, edge_mask)
+    b, n, hh, d = q.shape
+    kk = nbr_idx.shape[-1]
+    node, edge = (b, n, hh, d), (b, n, kk, hh, d)
+    for name, t, shape, dtype in (("h", h, node, torch.float32),
+                                  ("z", z, (b, n, hh * d), torch.float32),
+                                  ("dh", dh, node, torch.float32)):
+        _check(name, t, shape, dtype, q.device)
+    if de is not None:
+        _check("de", de, edge, q.dtype, q.device)
+    dq, dk, dv, dpe = _outputs(out, ((node, q.dtype),) * 3 + ((edge, q.dtype),), q.device)
+    scratch = torch.empty((b, n * kk, hh * d), dtype=torch.float32, device=q.device)
+    _launch("edge_attention_bwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), proj_e.data_ptr(),
+            nbr_idx.data_ptr(), edge_mask.data_ptr(), h.data_ptr(), z.data_ptr(),
+            dh.data_ptr(), None if de is None else de.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dpe.data_ptr(), scratch.data_ptr(),
+            b, n, kk, hh, d, int(q.dtype == torch.bfloat16))
+    edge_attention_backward.launches += 1
+    return dq, dk, dv, dpe
+
+
+edge_attention_backward.launches = 0
+
+
+class EdgeAttention(torch.autograd.Function):
+    """Differentiable fused edge attention: K1 forward, K2 backward (their
+    plain versions for CPU tensors). ``apply(q, k, v, proj_e, nbr_idx,
+    edge_mask)`` returns (h [B, N, H, D] float32, e_out in the input
+    dtype), as ``edge_attention_pallas``. The residuals are the ones
+    ``_fwd`` saves: the inputs, h and z. An output whose cotangent never
+    arrives (the final GT layer drops e_out) reaches the backward as None,
+    not as a tensor of zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, proj_e, nbr_idx, edge_mask):
+        h, e_out, z = edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask)
+        ctx.save_for_backward(q, k, v, proj_e, nbr_idx, edge_mask, h, z)
+        ctx.set_materialize_grads(False)
+        return h, e_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, de):
+        q, k, v, proj_e, nbr_idx, edge_mask, h, z = ctx.saved_tensors
+        dh = torch.zeros_like(h) if dh is None else dh.float().contiguous()
+        if de is not None:
+            de = de.to(q.dtype).contiguous()
+        dq, dk, dv, dpe = edge_attention_backward(q, k, v, proj_e, nbr_idx, edge_mask,
+                                                  h, z, dh, de)
+        return dq, dk, dv, dpe, None, None

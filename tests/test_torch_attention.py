@@ -104,16 +104,40 @@ def test_wrapper_on_cpu_runs_plain_version_without_counting():
 
 
 def test_wrapper_refuses_grad_on_cuda(monkeypatch):
-    """Inference only: a CUDA input that requires grad names the missing
-    backward kernel instead of silently running the plain version."""
+    """On CUDA tensors the K1 wrapper gives no gradients, so called
+    directly on an input that requires grad it refuses (and launches
+    nothing) instead of cutting the graph. The GT dispatch routes such an
+    input through EdgeAttention (K1 forward, K2 backward: one launch each)
+    and a no-grad input straight to K1 (no K2 launch)."""
     monkeypatch.setattr(cuda_attention, "_on_cuda", lambda t: True)
+    launched = []
+    monkeypatch.setattr(cuda_attention, "_launch", lambda name, device, *args:
+                        launched.append(name))
+    for kernel in (cuda_attention.edge_attention_forward, cuda_attention.edge_attention_backward):
+        monkeypatch.setattr(kernel, "launches", 0)
     arrays = _inputs(seed=4)
     q, kk, v, pe, _, _ = _torch(arrays)
+    nbr, mask = torch.from_numpy(arrays[4]), torch.from_numpy(arrays[5]).float()
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2"):
-        cuda_attention.edge_attention_forward(q, kk, v, pe, torch.from_numpy(arrays[4]),
-                                              torch.from_numpy(arrays[5]).float())
-    assert cuda_attention.edge_attention_forward.launches == 0
+    with pytest.raises(RuntimeError, match="EdgeAttention"):
+        cuda_attention.edge_attention_forward(q, kk, v, pe, nbr, mask)
+    assert launched == [] and cuda_attention.edge_attention_forward.launches == 0
+
+    cfg = GTConfig(hidden=16, num_heads=2, attention_impl="kernel")
+    h, e = _dispatch_attention(cfg, q, kk, v, pe, nbr, mask)
+    assert h.grad_fn is not None and type(h.grad_fn).__name__ == "EdgeAttentionBackward"
+    assert launched == ["edge_attention_fwd"]
+    h.sum().backward()
+    assert launched == ["edge_attention_fwd", "edge_attention_bwd"]
+    assert cuda_attention.edge_attention_forward.launches == 1
+    assert cuda_attention.edge_attention_backward.launches == 1
+
+    with torch.no_grad():
+        h, _ = _dispatch_attention(cfg, q, kk, v, pe, nbr, mask)
+    assert h.grad_fn is None
+    assert launched == ["edge_attention_fwd", "edge_attention_bwd", "edge_attention_fwd"]
+    assert cuda_attention.edge_attention_forward.launches == 2
+    assert cuda_attention.edge_attention_backward.launches == 1
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "contiguous"])

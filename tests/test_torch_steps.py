@@ -1,0 +1,159 @@
+"""One port ``train_step`` against the JAX package's from shared weights
+(training/steps.py): the loss, every gradient, the updated batch
+statistics and the pre-clip gradient norm; the non-finite guard; and the
+dropout generator's seeding by (seed, step)."""
+
+import dataclasses
+import functools
+import types
+
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+
+from deepinteract_tpu.models.model import DeepInteract as JaxDeepInteract
+from deepinteract_tpu.training.steps import loss_and_updates
+from deepinteract_tpu_torch.models.model import DeepInteract
+from deepinteract_tpu_torch.training.steps import (create_train_state, dropout_generator,
+                                                   eval_step, train_step)
+from deepinteract_tpu_torch.weights import load_jax_variables
+from torch_port_helpers import complexes, jax_cfg, port_cfg, random_variables
+
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+STATS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _port_model(variables, dropout_rate=0.0, norm_type="batch"):
+    cfg = port_cfg(norm_type=norm_type)
+    cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, dropout_rate=dropout_rate))
+    model = DeepInteract(cfg)
+    load_jax_variables(model, variables)
+    return model
+
+
+@pytest.fixture(scope="module")
+def shared():
+    jcx, cx = complexes(seed=11)
+    variables = random_variables(jax_cfg(), jcx, seed=11)
+    return jcx, cx, variables
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step_fn(norm_type, weight_classes):
+    """JAX ``loss_and_updates`` under ``value_and_grad``, jitted once per
+    config (one compile is far cheaper than op-by-op dispatch)."""
+    model = JaxDeepInteract(jax_cfg(norm_type=norm_type))
+
+    def step(params, batch_stats, batch):
+        state = types.SimpleNamespace(apply_fn=model.apply, batch_stats=batch_stats)
+        return jax.value_and_grad(loss_and_updates, has_aux=True)(
+            params, state, batch, weight_classes, jax.random.PRNGKey(0))
+
+    return jax.jit(step)
+
+
+def _jax_step(variables, jcx, norm_type, weight_classes):
+    return _jax_step_fn(norm_type, weight_classes)(
+        variables["params"], variables.get("batch_stats", {}), jcx)
+
+
+def _perturbed(variables, seed):
+    """The variables with every parameter scaled by (1 + 1e-7 * noise): a
+    perturbation at float32's rounding level."""
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) * (1 + 1e-7 * rng.standard_normal(a.shape)).astype(np.float32),
+        variables["params"])
+    return dict(variables, params=params)
+
+
+@pytest.mark.parametrize("norm_type,weight_classes", [("layer", True), ("batch", False)])
+def test_train_step_matches_jax(shared, norm_type, weight_classes):
+    """Loss 1e-5, gradient norm 1e-4, updated batch statistics 1e-5, and
+    every gradient 1e-4. With 'layer' norms the train step is well
+    conditioned and the 1e-4 bar holds as it is. With 'batch' norms
+    (train-mode statistics over n_valid * C, ROADMAP queue 3) the first GT
+    layer's gradients move by up to ~1e-3 when the JAX reference's own
+    weights move by 1e-7 (float32 rounding), so two float32 summation
+    orders cannot agree to 1e-4 there: each gradient tensor's absolute bar
+    is 1e-4 plus four times that measured spread of the reference."""
+    jcx, cx, variables = shared
+    if norm_type == "layer":
+        variables = random_variables(jax_cfg(norm_type="layer"), jcx, seed=11)
+    (loss, mutated), grads = _jax_step(variables, jcx, norm_type, weight_classes)
+
+    port = _port_model(variables, norm_type=norm_type)
+    metrics = train_step(create_train_state(port), cx, weight_classes)
+    np.testing.assert_allclose(metrics["loss"], float(loss), **LOSS_TOL)
+    np.testing.assert_allclose(metrics["grad_norm"], float(optax.global_norm(grads)), **GRAD_TOL)
+
+    # The JAX gradient and statistics trees, mapped onto the port's names.
+    stats = {"batch_stats": mutated["batch_stats"]} if norm_type == "batch" else {}
+    ref = _port_model({"params": grads, **stats}, norm_type=norm_type).state_dict()
+    spread = {name: 0.0 for name in ref}
+    if norm_type == "batch":
+        for seed in (1, 2):
+            _, moved = _jax_step(_perturbed(variables, seed), jcx, norm_type, weight_classes)
+            moved = _port_model({"params": moved, **stats}).state_dict()
+            for name in spread:
+                spread[name] = max(spread[name], (moved[name] - ref[name]).abs().max().item())
+    named = dict(port.named_parameters())
+    assert len(named) == len([k for k in ref if k in named]) > 0
+    for name, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(), err_msg=name,
+                                   rtol=GRAD_TOL["rtol"],
+                                   atol=GRAD_TOL["atol"] + 4 * spread[name])
+    for name, buf in port.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), ref[name].numpy(), err_msg=name, **STATS_TOL)
+
+
+def test_guard_skips_a_non_finite_step(shared):
+    _, cx, variables = shared
+    port = _port_model(variables)
+    state = create_train_state(port)
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    bad = dataclasses.replace(cx, graph1=dataclasses.replace(
+        cx.graph1, node_feats=torch.full_like(cx.graph1.node_feats, float("nan"))))
+    m = train_step(state, bad, guard=True)
+    assert m["bad_step"] == 1.0 and m["bad_steps"] == 1.0 and not np.isfinite(m["loss"])
+    assert state.step == 0 and state.bad_steps == 1
+    for name, value in port.state_dict().items():
+        assert torch.equal(value, before[name]), name  # params and batch stats untouched
+    m = train_step(state, cx, guard=True)
+    assert m["bad_step"] == 0.0 and m["bad_steps"] == 0.0 and np.isfinite(m["loss"])
+    assert state.step == 1 and state.bad_steps == 0
+    assert not torch.equal(port.decoder.phase2_conv.weight, before["decoder.phase2_conv.weight"])
+
+
+def test_dropout_is_seeded_by_seed_and_step(shared):
+    """Two states with the same weights and seed take identical steps; the
+    next step's masks differ from the first's."""
+    _, cx, variables = shared
+    losses = []
+    for _ in range(2):
+        state = create_train_state(_port_model(variables, dropout_rate=0.2), seed=5)
+        losses.append(train_step(state, cx)["loss"])
+    assert losses[0] == losses[1]
+    a = torch.rand(1000, generator=dropout_generator(5, 0, "cpu"))
+    b = torch.rand(1000, generator=dropout_generator(5, 1, "cpu"))
+    c = torch.rand(1000, generator=dropout_generator(6, 0, "cpu"))
+    assert torch.equal(a, torch.rand(1000, generator=dropout_generator(5, 0, "cpu")))
+    assert not torch.equal(a, b) and not torch.equal(a, c)
+    # Same weights, step 1 instead of step 0: other masks, another loss.
+    state = create_train_state(_port_model(variables, dropout_rate=0.2), seed=5)
+    state.step = 1
+    assert train_step(state, cx)["loss"] != losses[0]
+
+
+def test_eval_step_is_the_eval_mode_forward(shared):
+    _, cx, variables = shared
+    port = _port_model(variables, dropout_rate=0.2)
+    out = eval_step(create_train_state(port), cx)
+    with torch.no_grad():
+        logits = port.eval()(cx.graph1, cx.graph2)
+    assert torch.equal(out["logits"], logits)
+    np.testing.assert_allclose(out["probs"].sum(-1).numpy(), 1.0, rtol=1e-6)
+    assert torch.isfinite(out["loss"])

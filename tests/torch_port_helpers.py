@@ -15,6 +15,7 @@ from collections.abc import Mapping
 
 import jax
 import numpy as np
+import torch
 
 from deepinteract_tpu.data.graph import stack_complexes as jax_stack
 from deepinteract_tpu.data.synthetic import random_complex as jax_random_complex
@@ -29,6 +30,13 @@ from deepinteract_tpu_torch.models.geometric_transformer import GTConfig
 from deepinteract_tpu_torch.models.model import ModelConfig
 
 HIDDEN, HEADS, KNN, N1, N2, PAD, LIMIT, CHUNKS = 16, 2, 6, 26, 22, 32, 64, 2
+
+# The suite runs in several worker processes at once, and each one imports
+# this module while collecting. torch's default of one intra-op thread per
+# core then oversubscribes the machine: its spinning threads slow every
+# other worker and the subprocesses their tests start. At these tensor
+# sizes one thread is as fast.
+torch.set_num_threads(1)
 
 
 def jax_cfg(attention_impl: str = "jnp", norm_type: str = "batch",
