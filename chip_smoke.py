@@ -6,24 +6,30 @@ Phases, in order; any failure exits non-zero:
   1. device and toolchain (card, power limit, CUDA, nvcc, triton);
   2. build of every hand-written kernel from the sources in this checkout
      (one nvcc per source, started together);
-  3. kernel parity on the card: each kernel's wrapper against its plain
-     PyTorch version at the main paths' shapes, outputs pre-filled with
-     NaN; the edge-attention autograd Function (K1 forward, K2 backward)
-     against autograd through the plain forward;
+  3. kernel parity on the card: the in-edge CSR against a CPU stable
+     argsort; each kernel's wrapper against its plain PyTorch version at
+     the main paths' shapes (flagship f32 and bf16, de=None, a hub
+     destination with over 1,000 in-edges, the N=512 bucket, a node
+     without in-edges, rows wider than a warp, an odd head count),
+     outputs pre-filled with NaN, and two calls bitwise equal; the
+     edge-attention autograd Function (K1 forward, K2 backward) against
+     autograd through the plain forward;
   4. the predict path: ``cli.predict.predict_complex`` at the flagship
      width (2-layer GT, hidden 128, 4 heads, kNN 20; 14-chunk dilated
      decoder of 128 channels; seeded random weights) on three synthetic
-     complexes, with the kernel launch counts read around it, and the same
-     model with the plain attention compared on logits;
+     complexes, with the kernel launch and CSR build counts read around
+     it, and the same model with the plain attention compared on logits;
   5. the training path: ``cli.train`` at the flagship width on a small
      on-disk dataset of the same three complexes (one epoch: three train
-     steps, then val and test), with the launch counts read around it;
-     then one train step and one eval step counted on their own, and one
-     train step of the kernel path against one of the plain path from the
-     same weights, batch and dropout seed, with the flagship's batch norm
-     and with layer norm;
+     steps, then val and test), with the launch and build counts read
+     around it; then one train step and one eval step counted on their
+     own, and one train step of the kernel path against one of the plain
+     path from the same weights, batch and dropout seed, with the
+     flagship's batch norm and with layer norm;
   6. times with CUDA events (warm-up, median of >= 20 runs): each kernel
-     and its plain version, predict per complex split into encode and
+     (on a prebuilt CSR, as the main path runs it) and the CSR build at
+     N = 64, 128, 192, 256 and 512 beside each kernel's bound, the plain
+     versions at N = 256; predict per complex split into encode and
      decode; the train step per complex (host clock around synchronized
      steps, median of 10) with its peak memory and its split into
      forward, backward and optimizer; one step of the largest complex
@@ -73,7 +79,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
 COMPLEXES = ((100, 80), (200, 180), (60, 250))  # -> buckets 128/128, 256/192, 64/256
 LAUNCHES_PER_ENCODE_PAIR = 4  # 2 GT layers x 2 siamese encodes
-KERNELS = (cuda_attention.edge_attention_forward, cuda_attention.edge_attention_backward)
+BUILDS_PER_ENCODE_PAIR = 2  # one in-edge CSR per encode
+# Counted around the main paths: K1 launches, K2 launches, CSR builds.
+COUNTERS = (cuda_attention.edge_attention_forward, cuda_attention.edge_attention_backward)
+TIMED_N = {64: 50, 128: 100, 192: 180, 256: 200, 512: 450}  # bucket -> real nodes
 
 
 def log(msg: str) -> None:
@@ -109,13 +118,44 @@ def time_ms(fn, runs: int = 20, inner: int = 1, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
+def device_ms(fn, runs: int = 20, inner: int = 20, warmup: int = 3) -> tuple:
+    """(device ms, host ms) per call of ``fn``. Device: median over
+    ``runs`` of CUDA-event time per call over ``inner`` back-to-back calls,
+    enqueued behind a spin of the card that outlasts the host's enqueue of
+    them, so they run back to back and the host's cost per call (Python,
+    argument checks, allocation, the ctypes call) is not in it. Host: the
+    median wall time per call to enqueue them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    device, host = [], []
+    spin = 0
+    for _ in range(runs):
+        if spin:
+            torch.cuda._sleep(spin)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        enqueue_s = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        host.append(enqueue_s * 1e3 / inner)
+        device.append(start.elapsed_time(end) / inner)
+        spin = int(3 * enqueue_s * 2e9)  # cycles: three times the enqueue at 2 GHz
+    return statistics.median(device[1:]), statistics.median(host)
+
+
 def reset_launches() -> None:
-    for kernel in KERNELS:
+    for kernel in COUNTERS:
         kernel.launches = 0
+    cuda_attention.in_edge_csr.builds = 0
 
 
 def launches() -> tuple:
-    return tuple(kernel.launches for kernel in KERNELS)
+    """(K1 launches, K2 launches, CSR builds) since the last reset."""
+    return (*(kernel.launches for kernel in COUNTERS), cuda_attention.in_edge_csr.builds)
 
 
 # ---------------------------------------------------------------------------
@@ -124,9 +164,11 @@ def launches() -> tuple:
 
 
 def attention_case(rng, batch, n_real, n_pad, knn, heads, head_dim, dtype, orphan=None,
-                   device="cuda"):
+                   hub=None, device="cuda"):
     """Attention inputs on the card over real kNN graphs with a padded tail;
-    ``orphan`` names a node of graph 0 left without in-edges."""
+    ``orphan`` names a node of graph 0 left without in-edges; ``hub =
+    (node, sources)`` sends every edge of graph 0's first ``sources``
+    nodes to ``node``."""
     nbrs, masks = [], []
     for _ in range(batch):
         raw = features.featurize_chain(random_backbone(n_real, rng),
@@ -137,6 +179,8 @@ def attention_case(rng, batch, n_real, n_pad, knn, heads, head_dim, dtype, orpha
     nbr = torch.stack(nbrs).to(torch.int32)
     if orphan is not None:
         nbr[0][nbr[0] == orphan] = orphan + 1
+    if hub is not None:
+        nbr[0, :hub[1]] = hub[0]
     dev = torch.device(device)
     shape = (batch, n_pad, heads, head_dim)
     qkv = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
@@ -151,14 +195,41 @@ def to_bf16(args):
                  for t in args)
 
 
+def check_csr(name, nbr):
+    """The in-edge CSR built on the card against a stable argsort of nbr on
+    the CPU."""
+    in_ptr, in_eid = cuda_attention.in_edge_csr(nbr)
+    flat = nbr.cpu().numpy().reshape(nbr.shape[0], -1)
+    counts = np.stack([np.bincount(row, minlength=nbr.shape[1]) for row in flat])
+    ref_ptr = np.concatenate([np.zeros((len(flat), 1), np.int64), np.cumsum(counts, 1)], 1)
+    check(np.array_equal(in_ptr.cpu().numpy(), ref_ptr), f"{name}: CSR in_ptr differs")
+    check(np.array_equal(in_eid.cpu().numpy(), np.argsort(flat, axis=1, kind="stable")),
+          f"{name}: CSR in_eid differs from a stable argsort")
+    log(f"  CSR {name}: equals the CPU stable argsort (max in-degree "
+        f"{int(counts.max())})")
+    return in_ptr, in_eid
+
+
+def nan_buffers(device, *like):
+    return tuple(torch.full(shape, float("nan"), device=device, dtype=dtype)
+                 for shape, dtype in like)
+
+
 def check_attention(name, args, tol, orphan=None) -> dict:
+    """K1 against its plain version on a CSR built on the card, into
+    NaN-filled buffers, twice (bitwise equal)."""
     q = args[0]
     b, n, h, d = q.shape
     kk = args[4].shape[-1]
-    out = (torch.full((b, n, h, d), float("nan"), device=q.device),
-           torch.full((b, n, kk, h, d), float("nan"), device=q.device, dtype=q.dtype),
-           torch.full((b, n, h * d), float("nan"), device=q.device))
-    got = cuda_attention.edge_attention_forward(*args, out=out)
+    in_edges = check_csr(name, args[4])
+    like = (((b, n, h, d), torch.float32), ((b, n, kk, h, d), q.dtype),
+            ((b, n, h * d), torch.float32))
+    got = cuda_attention.edge_attention_forward(*args, out=nan_buffers(q.device, *like),
+                                                in_edges=in_edges)
+    again = cuda_attention.edge_attention_forward(*args, out=nan_buffers(q.device, *like),
+                                                  in_edges=in_edges)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two K1 calls differ")
     ref = plain.edge_attention_forward(*args)
     errs = {}
     for label, g, r in zip(("h", "e_out", "z"), got, ref):
@@ -170,7 +241,7 @@ def check_attention(name, args, tol, orphan=None) -> dict:
     if orphan is not None:
         check(bool((got[0][0, orphan] == 0).all()), f"{name}: node without in-edges has h != 0")
     log(f"  K1 {name}: max |kernel - plain| h {errs['h']:.3g}  e_out {errs['e_out']:.3g}  "
-        f"z {errs['z']:.3g}  (tol {tol})")
+        f"z {errs['z']:.3g}  (tol {tol}); two calls bitwise equal")
     return errs
 
 
@@ -208,10 +279,17 @@ def backward_case(rng, args, with_de=True):
 
 
 def check_backward(name, bargs, tol, orphan=None) -> float:
+    """K2 against its plain version, into NaN-filled buffers, twice
+    (bitwise equal)."""
     q, proj_e, edge_mask = bargs[0], bargs[3], bargs[5]
-    out = tuple(torch.full(t.shape, float("nan"), device=q.device, dtype=q.dtype)
-                for t in (q, q, q, proj_e))
-    got = cuda_attention.edge_attention_backward(*bargs, out=out)
+    like = [(t.shape, q.dtype) for t in (q, q, q, proj_e)]
+    in_edges = cuda_attention.in_edge_csr(bargs[4])
+    got = cuda_attention.edge_attention_backward(*bargs, out=nan_buffers(q.device, *like),
+                                                 in_edges=in_edges)
+    again = cuda_attention.edge_attention_backward(*bargs, out=nan_buffers(q.device, *like),
+                                                   in_edges=in_edges)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two K2 calls differ")
     ref = plain.edge_attention_backward(*bargs)
     errs = {}
     for label, g, r in zip(("dq", "dk", "dv", "dpe"), got, ref):
@@ -225,7 +303,7 @@ def check_backward(name, bargs, tol, orphan=None) -> float:
     if orphan is not None:
         check(bool((got[0][0, orphan] == 0).all()), f"{name}: node without in-edges has dq != 0")
     log(f"  K2 {name}: max |kernel - plain| " + "  ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + f"  (tol {tol})")
+        + f"  (tol {tol}); two calls bitwise equal")
     return max(errs.values())
 
 
@@ -276,6 +354,87 @@ def check_autograd(name, args, tol, with_de=True) -> float:
     return err
 
 
+def build_kernels() -> None:
+    log("== phase 2: build")
+    for kname, built in cuda_attention.build().items():
+        log(f"  {kname}: {built['seconds']:.2f} s -> {built['path']}")
+        for line in built["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"    {line.strip()}")
+
+
+def kernel_parity(rng, device="cuda"):
+    """Phase 3 (on CPU tensors with ``device="cpu"``, a rehearsal of the
+    wrappers' plain versions). Returns (flagship inputs, their K2 inputs, K1's errors at
+    the flagship, K2's largest error there)."""
+    log("== phase 3: kernel parity on the card")
+    f32 = torch.float32
+    flagship = attention_case(rng, 1, 200, 256, 20, 4, 32, f32, device=device)
+    hub = attention_case(rng, 1, 200, 256, 20, 4, 32, f32, hub=(5, 64), device=device)
+    n512 = attention_case(rng, 1, 450, 512, 20, 4, 32, f32, device=device)
+    orphan = attention_case(rng, 2, 50, 64, 20, 4, 8, f32, orphan=3, device=device)
+    # H*D = 1024: rows of 8 warp-wide chunks (f32) or 4 at 8 elements per
+    # lane (bf16). H*D = 48 (3 heads): one element per lane, a part-filled
+    # second chunk.
+    wide = attention_case(rng, 1, 100, 128, 20, 32, 32, f32, device=device)
+    odd = attention_case(rng, 2, 50, 64, 20, 3, 16, f32, device=device)
+    cases = (("flagship f32 (B=1 N=256/200 K=20 H=4 D=32)", flagship, None),
+             ("flagship bf16", to_bf16(flagship), None),
+             ("hub: node 5 takes every edge of nodes 0-63 (B=1 N=256/200)", hub, None),
+             ("N=512 bucket (B=1 N=512/450)", n512, None),
+             ("B=2 N=64/50 D=8 with an orphan node", orphan, 3),
+             ("H*D=1024 (B=1 N=128/100 H=32 D=32)", wide, None),
+             ("H*D=1024 bf16", to_bf16(wide), None),
+             ("3 heads (B=2 N=64/50 H=3 D=16)", odd, None))
+    bf16 = lambda args: args[0].dtype == torch.bfloat16  # noqa: E731
+    fwd_errs = [check_attention(name, args, 3e-2 if bf16(args) else 1e-5, orphan=orph)
+                for name, args, orph in cases][0]
+    flagship_bwd = backward_case(rng, flagship)
+    bwd_err = check_backward("flagship f32", flagship_bwd, 1e-4)
+    check_backward("flagship f32, de=None", backward_case(rng, flagship, with_de=False), 1e-4)
+    for name, args, orph in cases[1:]:
+        check_backward(name, backward_case(rng, args), 3e-2 if bf16(args) else 1e-4,
+                       orphan=orph)
+    check_autograd("flagship f32", flagship, 1e-4)
+    check_autograd("flagship f32, e_out unused", flagship, 1e-4, with_de=False)
+    check_autograd("flagship bf16", to_bf16(flagship), 3e-2)
+    return flagship, flagship_bwd, fwd_errs, bwd_err
+
+
+def time_kernels(rng, flagship, flagship_bwd) -> dict:
+    """K1, K2 (with de) and the CSR build at B=1, K=20, H*D=128 f32 for
+    each bucket N of TIMED_N (N=256: the flagship case), each kernel on a
+    prebuilt CSR as the main path runs it, beside its bound; the plain
+    versions at N=256."""
+    by_n = {}
+    with torch.inference_mode():
+        for n, real in TIMED_N.items():
+            args = flagship if n == 256 else attention_case(rng, 1, real, n, 20, 4, 32,
+                                                            torch.float32)
+            bargs = flagship_bwd if n == 256 else backward_case(rng, args)
+            csr = cuda_attention.in_edge_csr(args[4])
+            out = cuda_attention.edge_attention_forward(*args, in_edges=csr)
+            grads = cuda_attention.edge_attention_backward(*bargs, in_edges=csr)
+            k1_ms, k1_host = device_ms(
+                lambda: cuda_attention.edge_attention_forward(*args, in_edges=csr))
+            k2_ms, k2_host = device_ms(
+                lambda: cuda_attention.edge_attention_backward(*bargs, in_edges=csr))
+            csr_ms, _ = device_ms(lambda: cuda_attention.in_edge_csr(args[4]))
+            k1_bound, k1_by = attention_bound(args, out)
+            k2_bound, k2_by = backward_bound(bargs, grads)
+            by_n[n] = {"k1_ms": k1_ms, "k1_host_ms": k1_host, "k1_bound_ms": k1_bound,
+                       "k1_bound_by": k1_by, "k2_ms": k2_ms, "k2_host_ms": k2_host,
+                       "k2_bound_ms": k2_bound, "k2_bound_by": k2_by, "csr_ms": csr_ms}
+            log(f"  N={n} ({real} real, B=1 K=20 H*D=128 f32): K1 {k1_ms:.5f} ms (bound "
+                f"{k1_bound:.5f}, {k1_ms / k1_bound:.1f}x; host {k1_host:.4f} ms/call), K2 "
+                f"{k2_ms:.5f} ms (bound {k2_bound:.5f}, {k2_ms / k2_bound:.1f}x; host "
+                f"{k2_host:.4f} ms/call), CSR build {csr_ms:.5f} ms")
+        k1_plain, _ = device_ms(lambda: plain.edge_attention_forward(*flagship), inner=5)
+        k2_plain, _ = device_ms(lambda: plain.edge_attention_backward(*flagship_bwd), inner=5)
+    log(f"  N=256 plain versions: K1 {k1_plain:.4f} ms, K2 {k2_plain:.4f} ms")
+    return {"by_n": by_n, "k1_plain_ms": k1_plain, "k2_plain_ms": k2_plain}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: predict path
 # ---------------------------------------------------------------------------
@@ -290,11 +449,11 @@ def run_predict_path(model, plain_model, raws, device):
         results.append(predict_complex(raw, model, device))
         per_complex.append(tuple(a - b for a, b in zip(launches(), before)))
     total = launches()
+    expected = (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)
     for (n1, n2), res, count in zip(COMPLEXES, results, per_complex):
         probs = res["contact_prob_map"]
-        check(count == (LAUNCHES_PER_ENCODE_PAIR, 0),
-              f"predict {n1}x{n2}: (K1, K2) launches {count}, expected "
-              f"({LAUNCHES_PER_ENCODE_PAIR}, 0)")
+        check(count == expected, f"predict {n1}x{n2}: (K1, K2 launches, CSR builds) {count}, "
+              f"expected {expected}")
         check(probs.shape == (n1, n2), f"complex {n1}x{n2}: probs shape {probs.shape}")
         check(bool(np.isfinite(probs).all()) and probs.min() >= 0 and probs.max() <= 1,
               f"complex {n1}x{n2}: probabilities not finite in [0, 1]")
@@ -305,11 +464,12 @@ def run_predict_path(model, plain_model, raws, device):
         diffs.append(diff)
         check(np.allclose(res["logits"], ref, rtol=1e-4, atol=1e-4),
               f"complex {n1}x{n2}: kernel vs plain logits differ by {diff:.3g}")
-        log(f"  {n1}x{n2}: K1 launches {LAUNCHES_PER_ENCODE_PAIR}, probs in "
+        log(f"  {n1}x{n2}: K1 launches {LAUNCHES_PER_ENCODE_PAIR}, CSR builds "
+            f"{BUILDS_PER_ENCODE_PAIR}, probs in "
             f"[{res['contact_prob_map'].min():.4f}, {res['contact_prob_map'].max():.4f}], "
             f"max |logits kernel - plain| {diff:.3g}")
-    check(launches() == total, "the plain-attention model launched a kernel")
-    return total[0], diffs
+    check(launches() == total, "the plain-attention model launched a kernel or built a CSR")
+    return total, diffs
 
 
 def time_predict(model, raw, device) -> dict:
@@ -345,7 +505,7 @@ def time_predict(model, raw, device) -> dict:
 
 def run_train_path(root, seed):
     """``cli.train`` for one epoch at the flagship width; returns the launch
-    counts around it and the number of train steps."""
+    and build counts around it and the number of train steps."""
     args = train_cli.parse_args(["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
                                  "--log_every", "1"])
     reset_launches()
@@ -354,15 +514,17 @@ def run_train_path(root, seed):
     (epoch,) = history
     steps = int(epoch["train_steps"])
     evals = len(DIPSDataset(root, "val")) + len(DIPSDataset(root, "test"))
-    expected = (LAUNCHES_PER_ENCODE_PAIR * (steps + evals), LAUNCHES_PER_ENCODE_PAIR * steps)
+    expected = (LAUNCHES_PER_ENCODE_PAIR * (steps + evals), LAUNCHES_PER_ENCODE_PAIR * steps,
+                BUILDS_PER_ENCODE_PAIR * (steps + evals))
     check(steps == len(COMPLEXES), f"train: {steps} steps, expected {len(COMPLEXES)}")
-    check(counts == expected, f"train: (K1, K2) launches {counts}, expected {expected} "
-          f"({steps} train steps, {evals} eval complexes)")
+    check(counts == expected, f"train: (K1, K2 launches, CSR builds) {counts}, expected "
+          f"{expected} ({steps} train steps, {evals} eval complexes)")
     check(epoch["train_skipped_steps"] == 0, "train: the non-finite guard skipped a step")
     for key, value in (("train_loss", epoch["train_loss"]), ("val_ce", epoch["val_ce"]),
                        ("test_ce", test["test_ce"])):
         check(math.isfinite(value), f"train: {key} = {value}")
     log(f"  cli.train 1 epoch: {steps} train steps, launches K1 {counts[0]} K2 {counts[1]}, "
+        f"CSR builds {counts[2]}, "
         f"train_loss {epoch['train_loss']:.4f}, val_ce {epoch['val_ce']:.4f}, "
         f"test_ce {test['test_ce']:.4f}, med_test_auroc {test['med_test_auroc']:.4f}")
     return counts, steps
@@ -372,17 +534,19 @@ def check_step_launches(state, batch):
     reset_launches()
     m = train_step(state, batch, guard=True)
     torch.cuda.synchronize()
-    check(launches() == (LAUNCHES_PER_ENCODE_PAIR, LAUNCHES_PER_ENCODE_PAIR),
-          f"train step: (K1, K2) launches {launches()}, expected (4, 4)")
+    expected = (LAUNCHES_PER_ENCODE_PAIR, LAUNCHES_PER_ENCODE_PAIR, BUILDS_PER_ENCODE_PAIR)
+    check(launches() == expected,
+          f"train step: (K1, K2 launches, CSR builds) {launches()}, expected {expected}")
     check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and not m["bad_step"],
           f"train step: metrics {m}")
     reset_launches()
     out = eval_step(state, batch)
-    check(launches() == (LAUNCHES_PER_ENCODE_PAIR, 0),
-          f"eval step: (K1, K2) launches {launches()}, expected (4, 0)")
+    expected = (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)
+    check(launches() == expected,
+          f"eval step: (K1, K2 launches, CSR builds) {launches()}, expected {expected}")
     check(bool(torch.isfinite(out["loss"])), "eval step: loss not finite")
-    log(f"  one train step: K1 4, K2 4 launches, loss {m['loss']:.4f}, "
-        f"grad_norm {m['grad_norm']:.4f}; one eval step: K1 4, K2 0")
+    log(f"  one train step: K1 4, K2 4 launches, 2 CSR builds, loss {m['loss']:.4f}, "
+        f"grad_norm {m['grad_norm']:.4f}; one eval step: K1 4, K2 0, 2 CSR builds")
 
 
 def compare_train_step(label, model, plain_model, batch, seed, spread_seeds=()):
@@ -516,29 +680,9 @@ def main(argv=None) -> int:
     except ImportError:
         log("  triton: not importable")
 
-    log("== phase 2: build")
-    for kname, built in cuda_attention.build().items():
-        log(f"  {kname}: {built['seconds']:.2f} s -> {built['path']}")
-        for line in built["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"    {line.strip()}")
-
-    log("== phase 3: kernel parity on the card")
+    build_kernels()
     rng = np.random.default_rng(args.seed)
-    flagship = attention_case(rng, 1, 200, 256, 20, 4, 32, torch.float32)
-    orphan = attention_case(rng, 2, 50, 64, 20, 4, 8, torch.float32, orphan=3)
-    fwd_errs = check_attention("flagship f32 (B=1 N=256/200 K=20 H=4 D=32)", flagship, 1e-5)
-    check_attention("flagship bf16", to_bf16(flagship), 3e-2)
-    check_attention("B=2 N=64/50 D=8 with an orphan node", orphan, 1e-5, orphan=3)
-    flagship_bwd = backward_case(rng, flagship)
-    bwd_err = check_backward("flagship f32", flagship_bwd, 1e-4)
-    check_backward("flagship f32, de=None", backward_case(rng, flagship, with_de=False), 1e-4)
-    check_backward("flagship bf16", backward_case(rng, to_bf16(flagship)), 3e-2)
-    check_backward("B=2 N=64/50 D=8 with an orphan node", backward_case(rng, orphan), 1e-4,
-                   orphan=3)
-    check_autograd("flagship f32", flagship, 1e-4)
-    check_autograd("flagship f32, e_out unused", flagship, 1e-4, with_de=False)
-    check_autograd("flagship bf16", to_bf16(flagship), 3e-2)
+    flagship, flagship_bwd, fwd_errs, bwd_err = kernel_parity(rng)
 
     log("== phase 4: predict path (predict_complex, flagship width, seeded weights)")
     cfg = ModelConfig()
@@ -548,7 +692,7 @@ def main(argv=None) -> int:
     plain_model = load_model(plain_cfg, device, seed=args.seed)
     plain_model.load_state_dict(model.state_dict())
     raws = [random_raw_complex(n1, n2, rng) for n1, n2 in COMPLEXES]
-    predict_k1, logit_diffs = run_predict_path(model, plain_model, raws, device)
+    predict_counts, logit_diffs = run_predict_path(model, plain_model, raws, device)
     bf16 = load_model(dataclasses.replace(cfg, compute_dtype="bfloat16"), device, seed=args.seed)
     probs16 = predict_complex(raws[0], bf16, device)["contact_prob_map"]
     check(probs16.shape == COMPLEXES[0] and bool(np.isfinite(probs16).all()),
@@ -576,22 +720,7 @@ def main(argv=None) -> int:
     del plain_model
 
     log("== phase 6: times (CUDA events, median of 20)")
-    with torch.inference_mode():
-        out = cuda_attention.edge_attention_forward(*flagship)
-        k1_ms = time_ms(lambda: cuda_attention.edge_attention_forward(*flagship),
-                        runs=20, inner=20)
-        k1_plain_ms = time_ms(lambda: plain.edge_attention_forward(*flagship), runs=20, inner=5)
-        grads = cuda_attention.edge_attention_backward(*flagship_bwd)
-        k2_ms = time_ms(lambda: cuda_attention.edge_attention_backward(*flagship_bwd),
-                        runs=20, inner=20)
-        k2_plain_ms = time_ms(lambda: plain.edge_attention_backward(*flagship_bwd),
-                              runs=20, inner=5)
-    k1_bound, k1_by = attention_bound(flagship, out)
-    k2_bound, k2_by = backward_bound(flagship_bwd, grads)
-    log(f"  K1 edge_attention_fwd flagship f32: kernel {k1_ms:.4f} ms, plain "
-        f"{k1_plain_ms:.4f} ms, bound {k1_bound:.5f} ms ({k1_by})")
-    log(f"  K2 edge_attention_bwd flagship f32 (with de): kernel {k2_ms:.4f} ms, plain "
-        f"{k2_plain_ms:.4f} ms, bound {k2_bound:.5f} ms ({k2_by})")
+    ktimes = time_kernels(rng, flagship, flagship_bwd)
     for (n1, n2), raw in zip(COMPLEXES, raws):
         t = time_predict(model, raw, device)
         log(f"  predict {n1}x{n2}: encode x2 {t['encode_ms']:.3f} ms, decode "
@@ -612,29 +741,39 @@ def main(argv=None) -> int:
     log(f"  train step {n1}x{n2} under torch.profiler: wall {prof['wall_ms']:.3f} ms, "
         f"{prof['kernels']} device kernels, device {busy}")
 
+    at = ktimes["by_n"][256]
+    common = {"route": "cuda", "library_ms": None, "parity": "pass",
+              "csr_build_ms": at["csr_ms"],
+              "csr_build_ms_by_n": {n: t["csr_ms"] for n, t in ktimes["by_n"].items()},
+              "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2]}}
     kernels = [{
-        "name": "edge_attention_fwd", "route": "cuda",
+        "name": "edge_attention_fwd",
         "source": "deepinteract_tpu_torch/csrc/edge_attention_fwd.cu",
         "replaces": "deepinteract_tpu/ops/pallas_attention.py:443",
         "launches": train_counts[0],
-        "launches_by_path": {"predict": predict_k1, "train": train_counts[0]},
+        "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0]},
         "max_abs_err": max(fwd_errs.values()),
-        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-        "library_ms": None, "parity": "pass",
-        "max_abs_logit_diff_vs_plain": max(logit_diffs),
+        "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
+        "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
+        "ms_by_n": {n: t["k1_ms"] for n, t in ktimes["by_n"].items()},
+        "bound_ms_by_n": {n: t["k1_bound_ms"] for n, t in ktimes["by_n"].items()},
+        "max_abs_logit_diff_vs_plain": max(logit_diffs), **common,
     }, {
-        "name": "edge_attention_bwd", "route": "cuda",
+        "name": "edge_attention_bwd",
         "source": "deepinteract_tpu_torch/csrc/edge_attention_bwd.cu",
         "replaces": "deepinteract_tpu/ops/pallas_attention.py:519",
         "launches": train_counts[1],
-        "launches_by_path": {"predict": 0, "train": train_counts[1]},
+        "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1]},
         "max_abs_err": bwd_err,
-        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None, "parity": "pass",
+        "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
+        "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],
+        "ms_by_n": {n: t["k2_ms"] for n, t in ktimes["by_n"].items()},
+        "bound_ms_by_n": {n: t["k2_bound_ms"] for n, t in ktimes["by_n"].items()},
         "train_steps": train_steps,
         "train_step_vs_plain": {
             "batch_norm": dict(zip(("loss_diff", "max_grad_diff", "max_grad_spread"), bn_diffs)),
             "layer_norm": dict(zip(("loss_diff", "max_grad_diff"), ln_diffs[:2]))},
+        **common,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

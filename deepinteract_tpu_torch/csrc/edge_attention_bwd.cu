@@ -1,4 +1,4 @@
-// Fused scatter-mode edge-attention backward for Hopper (sm_90a).
+// Fused scatter-mode edge-attention backward (K2) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bwd_kernel` in
 // deepinteract_tpu/ops/pallas_attention.py (launched by `_pallas_backward`).
@@ -10,7 +10,7 @@
 // and forms
 //   dnum = dh[dst] / (z[dst] + 1e-6),  dZ_h = -sum_{d in h} h[dst] * dnum
 //   dw_h = sum_{d in h} dnum * v[src] + dZ_h
-//   ds   = dw_h * w_h * 1{|sum_pre_h| < 5} + de[e] * mask[e]
+//   dsum_h = dw_h * w_h * 1{|sum_pre_h| < 5},  ds = dsum_h + de[e] * mask[e]
 //   dpe[e] = ds * c,  da = ds * pe[e] * 1{|a| < 5} / sqrt(D)
 //   dq[dst] += da * k[src],  dk[src] += da * q[dst],  dv[src] += w * dnum
 // The clip masks are strict, as in the TPU kernel. q/k/v/pe/de are float32
@@ -20,199 +20,269 @@
 //
 // Bound: bytes. Every element is touched once and there are ~3 flops per
 // byte. At B=1, N=256, K=20, H*D=128, float32: pe and de in 5.24 MB, dpe
-// out 2.62 MB, q/k/v/h/z/dh in and dq/dk/dv out 1.18 MB, nbr and mask
-// 0.04 MB: 9.08 MB, ~2.7 us at 3.35 TB/s. This design adds a float32
-// scratch g of one row per edge (written once, read once: another
-// 5.24 MB, a cost of the design and not of the work) and pass B scans the
-// whole nbr list per node, as the forward does.
+// out 2.62 MB, q/k/v/h/z/dh in and dq/dk/dv out 1.18 MB, indices and mask
+// 0.04 MB: 9.08 MB, ~2.7 us at 3.35 TB/s.
 //
 // Design. The TPU kernel forms every scatter as a transposed one-hot
 // matmul and accumulates dq/dk/dv in output blocks revisited by a
 // sequential edge-block grid; neither carries over. Here the work splits
 // by who owns the sum, so no block writes another block's output and no
-// atomics are needed:
-//   Pass A, one block per (graph, source node i), H*D lanes (rounded up to
-//   a warp multiple). The K out-edges of i are contiguous rows of pe, de,
-//   nbr and mask. Per edge, in slot order, the block gathers q, h, z and dh
-//   at dst, recomputes a, c, s, sum_pre and w (head sums by __shfl_xor over
-//   the D lanes of a head, which sit in one warp), writes dpe[e], adds
-//   da * q[dst] and w * dnum into dk[i] and dv[i] in float32 registers,
-//   and writes the per-edge dq share g[e] = da * k[i]. dk[i] and dv[i] are
-//   written once at the end.
-//   Pass B, one block per (graph, destination node): the block picks its
-//   in-edges from the nbr list with a ballot and a prefix count, in
-//   ascending edge-id order (the same walk as the forward kernel), and sums
-//   their g rows into dq. A node without in-edges gets dq = 0.
-// Sum orders are fixed by slot and edge ids: the kernel is deterministic
-// from run to run. A destination without in-edges has z = 0 and a finite
-// 1/(z + eps) = 1e6, but no edge reads its dnum, so it contributes
-// nothing; masked (padded) edges have w = 0 and ds = 0, so dpe = 0.
+// atomics are needed. Both passes use edge_attention_common.cuh's layout:
+// one block of 8 warps per (graph, node, 32-lane row chunk), the node's
+// edges split into 8 contiguous slices, four edges' loads in flight per
+// warp (two in pass A at 8 elements per lane, where each edge holds six
+// rows), slices combined in warp order.
+//   Pass A, per source node i. Its K out-edges are contiguous rows of pe,
+//   de, nbr and mask. Each warp walks its slots, gathers q, h, z and dh at
+//   dst, recomputes a, c, s, sum_pre and w, writes dpe[e], adds da * q[dst]
+//   and w * dnum into dk[i] and dv[i], and writes the per-(edge, head)
+//   scalar dsum [B, N*K, H] float32 (80 KB at the shape above). dk[i] and
+//   dv[i] are written once, after the combine.
+//   Pass B, per destination, over the in-edge CSR that K1 walks (built
+//   once per encode). For each in-edge it reloads k[src], pe[e], de[e] and
+//   dsum[e, h], recomputes a (the same float32 product as pass A, so the
+//   same clip mask) and da, and sums da * k[src] into dq[dst]. So no
+//   H*D-wide per-edge dq share goes through memory: pass B re-reads pe and
+//   de (L2-resident after pass A) instead of writing and re-reading a
+//   float32 scratch of the same size.
+// Sum orders are fixed by slot, edge id and warp: the kernel is
+// deterministic from run to run. A destination without in-edges has z = 0
+// and a finite 1/(z + eps) = 1e6, but no edge reads its dnum, so it
+// contributes nothing, and its dq is 0; masked (padded) edges have w = 0
+// and ds = 0, so dpe = 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "edge_attention_common.cuh"
 
 namespace {
 
-constexpr float kClip = 5.0f;
-constexpr float kEps = 1e-6f;
-constexpr int kMaxThreads = 1024;
+using namespace di;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ float clip(float x) { return fminf(fmaxf(x, -kClip), kClip); }
-__device__ __forceinline__ bool inside_clip(float x) { return x > -kClip && x < kClip; }
+template <int VEC>
+constexpr int kUnrollSrc = VEC >= 8 ? 2 : 4;
+constexpr int kUnrollDst = 4;
 
-// Sum over the head_dim lanes of a head (a power of two <= 32, so a head's
-// lanes sit in one warp). Every lane of the warp must call it.
-__device__ __forceinline__ float head_sum(float x, int head_dim) {
-  for (int step = head_dim >> 1; step > 0; step >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, step);
-  return x;
-}
-
-template <typename T, bool kHasDe>
-__global__ void edge_attention_bwd_src_kernel(
+template <typename T, int VEC, bool kHasDe>
+__global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ pe, const int32_t* __restrict__ nbr,
     const float* __restrict__ mask, const float* __restrict__ h,
     const float* __restrict__ z, const float* __restrict__ dh,
     const T* __restrict__ de, T* __restrict__ dk, T* __restrict__ dv,
-    T* __restrict__ dpe, float* __restrict__ g, int num_nodes, int knn,
-    int hd, int head_dim, float inv_sqrt_d) {
-  const int src = blockIdx.x;
+    T* __restrict__ dpe, float* __restrict__ dsum, int num_nodes, int knn, int hd,
+    int head_dim, int head_lanes, int chunks, float inv_sqrt_d) {
+  constexpr int U = kUnrollSrc<VEC>;
+  __shared__ float scratch[kWarps * 2 * VEC * 32];
+
+  const int chunk = blockIdx.x % chunks;
+  const int src = blockIdx.x / chunks;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const bool active = tid < hd;
+  const int lane = threadIdx.x & 31;
+  const int off = (chunk * 32 + lane) * VEC;
+  const bool active = off < hd;
+  const bool head_leader = active && lane % head_lanes == 0;
+  const int heads = hd / head_dim;
+  const int head = off / head_dim;
 
   const int64_t node_row0 = (int64_t)b * num_nodes;
   const int64_t edge_row0 = (int64_t)b * num_nodes * knn + (int64_t)src * knn;
-  const int64_t src_off = (node_row0 + src) * hd + tid;
+  const int64_t src_off = (node_row0 + src) * hd + off;
 
-  const float kv = active ? to_f32(k[src_off]) : 0.0f;
-  const float vv = active ? to_f32(v[src_off]) : 0.0f;
-  float dk_acc = 0.0f;
-  float dv_acc = 0.0f;
-
-  for (int slot = 0; slot < knn; ++slot) {
-    const int64_t edge = edge_row0 + slot;
-    const int dst = nbr[edge];
-    const float m = mask[edge];
-    const int64_t dst_off = (node_row0 + dst) * hd + tid;
-    const int64_t e_off = edge * hd + tid;
-    float qd = 0.0f, hdst = 0.0f, dnum = 0.0f, pv = 0.0f;
-    if (active) {
-      qd = to_f32(q[dst_off]);
-      hdst = h[dst_off];
-      dnum = dh[dst_off] * (1.0f / (z[dst_off] + kEps));
-      pv = to_f32(pe[e_off]);
-    }
-    const float a = kv * qd * inv_sqrt_d;
-    const float c = clip(a);
-    const float sum_pre = head_sum(c * pv, head_dim);
-    const float w = expf(clip(sum_pre)) * m;
-    const float dz = -head_sum(hdst * dnum, head_dim);
-    const float dw = head_sum(dnum * vv, head_dim) + dz;
-    float ds = inside_clip(sum_pre) ? dw * w : 0.0f;
-    if (kHasDe && active) ds += to_f32(de[e_off]) * m;
-    const float da = inside_clip(a) ? ds * pv * inv_sqrt_d : 0.0f;
-    dk_acc += da * qd;
-    dv_acc += w * dnum;
-    if (active) {
-      store(&dpe[e_off], ds * c);
-      g[e_off] = da * kv;
-    }
-  }
-
+  float kv[VEC] = {}, vv[VEC] = {};
   if (active) {
-    store(&dk[src_off], dk_acc);
-    store(&dv[src_off], dv_acc);
+    load_vec(k + src_off, kv);
+    load_vec(v + src_off, vv);
+  }
+  float acc[2 * VEC] = {};  // dk, then dv
+
+  int s0, s1;
+  warp_slice(0, knn, s0, s1);
+  for (int slot = s0; slot < s1; slot += U) {
+    float m[U], zd[U], qd[U][VEC], hdst[U][VEC], dhd[U][VEC], pv[U][VEC], dev[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      m[u] = 0.0f;
+      zd[u] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qd[u][i] = hdst[u][i] = dhd[u][i] = pv[u][i] = dev[u][i] = 0.0f;
+      if (slot + u < s1) {
+        const int64_t edge = edge_row0 + slot + u;
+        m[u] = mask[edge];
+        if (active) {
+          const int64_t dst_off = (node_row0 + nbr[edge]) * hd + off;
+          load_vec(q + dst_off, qd[u]);
+          load_vec(h + dst_off, hdst[u]);
+          load_vec(dh + dst_off, dhd[u]);
+          zd[u] = z[dst_off];
+          load_vec(pe + edge * hd + off, pv[u]);
+          if (kHasDe) load_vec(de + edge * hd + off, dev[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (slot + u >= s1) break;  // warp-uniform: the shuffles stay converged
+      const int64_t edge = edge_row0 + slot + u;
+      const float rz = 1.0f / (zd[u] + kEps);
+      float a[VEC], c[VEC], sp[VEC], dnum[VEC], hdn[VEC], dnv[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        a[i] = kv[i] * qd[u][i] * inv_sqrt_d;
+        c[i] = clip(a[i]);
+        sp[i] = c[i] * pv[u][i];
+        dnum[i] = dhd[u][i] * rz;
+        hdn[i] = hdst[u][i] * dnum[i];
+        dnv[i] = dnum[i] * vv[i];
+      }
+      const float sum_pre = head_sum(sp, head_lanes);
+      const float w = expf(clip(sum_pre)) * m[u];
+      const float dz = -head_sum(hdn, head_lanes);
+      const float dw = head_sum(dnv, head_lanes) + dz;
+      const float ds_head = inside_clip(sum_pre) ? dw * w : 0.0f;
+      float dpe_v[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float ds = ds_head;
+        if (kHasDe) ds += dev[u][i] * m[u];
+        dpe_v[i] = ds * c[i];
+        const float da = inside_clip(a[i]) ? ds * pv[u][i] * inv_sqrt_d : 0.0f;
+        acc[i] += da * qd[u][i];
+        acc[VEC + i] += w * dnum[i];
+      }
+      if (active) store_vec(dpe + edge * hd + off, dpe_v);
+      if (head_leader) dsum[edge * heads + head] = ds_head;
+    }
+  }
+
+  combine_warps(acc, scratch);
+  if ((threadIdx.x >> 5) == 0 && active) {
+    float dkv[VEC], dvv[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      dkv[i] = acc[i];
+      dvv[i] = acc[VEC + i];
+    }
+    store_vec(dk + src_off, dkv);
+    store_vec(dv + src_off, dvv);
   }
 }
 
-template <typename T>
-__global__ void edge_attention_bwd_dst_kernel(
-    const int32_t* __restrict__ nbr, const float* __restrict__ g,
-    T* __restrict__ dq, int num_nodes, int knn, int hd) {
-  __shared__ int32_t picked[kMaxThreads];
-  __shared__ int32_t warp_hits[kMaxThreads / 32];
+template <typename T, int VEC, bool kHasDe>
+__global__ void __launch_bounds__(kThreads) edge_attention_bwd_dst_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ pe,
+    const int32_t* __restrict__ in_ptr, const int32_t* __restrict__ in_eid,
+    const float* __restrict__ mask, const float* __restrict__ dsum,
+    const T* __restrict__ de, T* __restrict__ dq, int num_nodes, int knn, int hd,
+    int head_dim, int chunks, float inv_sqrt_d) {
+  __shared__ float scratch[kWarps * VEC * 32];
 
-  const int dst = blockIdx.x;
+  const int chunk = blockIdx.x % chunks;
+  const int dst = blockIdx.x / chunks;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
-  const bool active = tid < hd;
+  const int lane = threadIdx.x & 31;
+  const int off = (chunk * 32 + lane) * VEC;
+  const bool active = off < hd;
+  const int heads = hd / head_dim;
+  const int head = off / head_dim;
 
-  const int num_edges = num_nodes * knn;
-  const int32_t* nbr_b = nbr + (int64_t)b * num_edges;
-  const int64_t edge_row0 = (int64_t)b * num_edges;
-  float acc = 0.0f;
+  const int64_t node_row0 = (int64_t)b * num_nodes;
+  const int64_t edge_row0 = (int64_t)b * num_nodes * knn;
+  const int32_t* ptr = in_ptr + (int64_t)b * (num_nodes + 1);
+  int s0, s1;
+  warp_slice(ptr[dst], ptr[dst + 1], s0, s1);
 
-  for (int chunk = 0; chunk < num_edges; chunk += blockDim.x) {
-    const int e = chunk + tid;
-    const bool hit = e < num_edges && nbr_b[e] == dst;
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = 0;
-    int total = 0;
-    for (int w = 0; w < num_warps; ++w) {
-      const int c = warp_hits[w];
-      offset += (w < warp) ? c : 0;
-      total += c;
+  float qv[VEC] = {};
+  if (active) load_vec(q + (node_row0 + dst) * hd + off, qv);
+  float acc[VEC] = {};
+
+  for (int base = s0; base < s1; base += 32) {
+    const int cnt = min(32, s1 - base);  // warp-uniform
+    const int mine = lane < cnt ? in_eid[edge_row0 + base + lane] : 0;
+    for (int j = 0; j < cnt; j += kUnrollDst) {
+      float m[kUnrollDst], dsh[kUnrollDst], kv[kUnrollDst][VEC], pv[kUnrollDst][VEC],
+          dev[kUnrollDst][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnrollDst; ++u) {
+        const int eid = __shfl_sync(kFull, mine, (j + u) & 31);
+        m[u] = dsh[u] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) kv[u][i] = pv[u][i] = dev[u][i] = 0.0f;
+        if (j + u < cnt && active) {
+          const int64_t edge = edge_row0 + eid;
+          m[u] = mask[edge];
+          dsh[u] = dsum[edge * heads + head];
+          load_vec(k + (node_row0 + eid / knn) * hd + off, kv[u]);
+          load_vec(pe + edge * hd + off, pv[u]);
+          if (kHasDe) load_vec(de + edge * hd + off, dev[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnrollDst; ++u) {
+        if (j + u >= cnt) break;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          // The same float32 product as pass A's a, so the same clip mask.
+          const float a = kv[u][i] * qv[i] * inv_sqrt_d;
+          float ds = dsh[u];
+          if (kHasDe) ds += dev[u][i] * m[u];
+          const float da = inside_clip(a) ? ds * pv[u][i] * inv_sqrt_d : 0.0f;
+          acc[i] += da * kv[u][i];
+        }
+      }
     }
-    if (hit) picked[offset + __popc(ballot & ((1u << lane) - 1u))] = e;
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < total; ++j) acc += g[(edge_row0 + picked[j]) * hd + tid];
-    }
-    __syncthreads();  // `picked` and `warp_hits` are rewritten next chunk
   }
 
-  if (active) store(&dq[((int64_t)b * num_nodes + dst) * hd + tid], acc);
+  combine_warps(acc, scratch);
+  if ((threadIdx.x >> 5) == 0 && active) store_vec(dq + (node_row0 + dst) * hd + off, acc);
+}
+
+template <typename T, bool kHasDe>
+int launch_passes(const void* q, const void* k, const void* v, const void* pe,
+                  const void* nbr, const void* mask, const void* in_ptr, const void* in_eid,
+                  const void* h, const void* z, const void* dh, const void* de, void* dq,
+                  void* dk, void* dv, void* dpe, void* dsum, int batch, int num_nodes, int knn,
+                  int heads, int head_dim, cudaStream_t stream) {
+  const int hd = heads * head_dim;
+  const void* const tp[] = {q, k, v, pe, de, dq, dk, dv, dpe};
+  const void* const fp[] = {h, z, dh};
+  const int vec = pick_vec<T>(hd, head_dim, tp, fp);
+  const int chunks = (hd / vec + 31) / 32;
+  const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
+  const dim3 grid(num_nodes * chunks, batch);
+  return dispatch_vec<T>(vec, [&](auto vc) {
+    constexpr int VEC = decltype(vc)::value;
+    edge_attention_bwd_src_kernel<T, VEC, kHasDe><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(pe), static_cast<const int32_t*>(nbr),
+        static_cast<const float*>(mask), static_cast<const float*>(h),
+        static_cast<const float*>(z), static_cast<const float*>(dh),
+        static_cast<const T*>(de), static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<T*>(dpe), static_cast<float*>(dsum), num_nodes, knn, hd, head_dim,
+        head_dim / VEC, chunks, inv_sqrt_d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    edge_attention_bwd_dst_kernel<T, VEC, kHasDe><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(pe),
+        static_cast<const int32_t*>(in_ptr), static_cast<const int32_t*>(in_eid),
+        static_cast<const float*>(mask), static_cast<const float*>(dsum),
+        static_cast<const T*>(de), static_cast<T*>(dq), num_nodes, knn, hd, head_dim, chunks,
+        inv_sqrt_d);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* pe,
-           const void* nbr, const void* mask, const void* h, const void* z,
-           const void* dh, const void* de, void* dq, void* dk, void* dv,
-           void* dpe, void* g, int batch, int num_nodes, int knn, int heads,
-           int head_dim, cudaStream_t stream) {
-  const int hd = heads * head_dim;
-  const int threads = (hd + 31) / 32 * 32;
-  const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
-  const dim3 grid(num_nodes, batch);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* pet = static_cast<const T*>(pe);
-  const int32_t* nbrt = static_cast<const int32_t*>(nbr);
-  const float* maskt = static_cast<const float*>(mask);
-  const float* ht = static_cast<const float*>(h);
-  const float* zt = static_cast<const float*>(z);
-  const float* dht = static_cast<const float*>(dh);
-  float* gt = static_cast<float*>(g);
+int launch(const void* q, const void* k, const void* v, const void* pe, const void* nbr,
+           const void* mask, const void* in_ptr, const void* in_eid, const void* h,
+           const void* z, const void* dh, const void* de, void* dq, void* dk, void* dv,
+           void* dpe, void* dsum, int batch, int num_nodes, int knn, int heads, int head_dim,
+           cudaStream_t stream) {
   if (de != nullptr) {
-    edge_attention_bwd_src_kernel<T, true><<<grid, threads, 0, stream>>>(
-        qt, kt, vt, pet, nbrt, maskt, ht, zt, dht, static_cast<const T*>(de),
-        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(dpe), gt,
-        num_nodes, knn, hd, head_dim, inv_sqrt_d);
-  } else {
-    edge_attention_bwd_src_kernel<T, false><<<grid, threads, 0, stream>>>(
-        qt, kt, vt, pet, nbrt, maskt, ht, zt, dht, nullptr,
-        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(dpe), gt,
-        num_nodes, knn, hd, head_dim, inv_sqrt_d);
+    return launch_passes<T, true>(q, k, v, pe, nbr, mask, in_ptr, in_eid, h, z, dh, de, dq,
+                                  dk, dv, dpe, dsum, batch, num_nodes, knn, heads, head_dim,
+                                  stream);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  edge_attention_bwd_dst_kernel<T><<<grid, threads, 0, stream>>>(
-      nbrt, gt, static_cast<T*>(dq), num_nodes, knn, hd);
-  return static_cast<int>(cudaGetLastError());
+  return launch_passes<T, false>(q, k, v, pe, nbr, mask, in_ptr, in_eid, h, z, dh, de, dq, dk,
+                                 dv, dpe, dsum, batch, num_nodes, knn, heads, head_dim, stream);
 }
 
 }  // namespace
@@ -220,24 +290,25 @@ int launch(const void* q, const void* k, const void* v, const void* pe,
 // Plain C entry point (loaded with ctypes). Layouts, all contiguous:
 // q/k/v and dq/dk/dv [B, N, H*D], pe/de/dpe [B, N*K, H*D] (float32 if
 // is_bf16 == 0, else bfloat16), nbr [B, N*K] int32, mask [B, N*K] float32,
-// h, z and dh [B, N, H*D] float32, g [B, N*K, H*D] float32 scratch. de may
-// be null. Requires H*D <= 1024 and head_dim a power of two <= 32 (the
-// wrapper checks). Launches pass A then pass B on `stream` and returns the
-// first cudaGetLastError() that is not cudaSuccess, else 0.
-extern "C" int di_edge_attention_bwd(
-    const void* q, const void* k, const void* v, const void* pe,
-    const void* nbr, const void* mask, const void* h, const void* z,
-    const void* dh, const void* de, void* dq, void* dk, void* dv, void* dpe,
-    void* g, int batch, int num_nodes, int knn, int heads, int head_dim,
-    int is_bf16, void* stream) {
+// in_ptr [B, N+1] and in_eid [B, N*K] int32 (the in-edge CSR), h, z and dh
+// [B, N, H*D] float32, dsum [B, N*K, H] float32 (written by pass A, read by
+// pass B). de may be null. Requires H*D <= 1024 and head_dim a power of two
+// <= 32 (the wrapper checks). Launches pass A then pass B on `stream` and
+// returns the first cudaGetLastError() that is not cudaSuccess, else 0.
+extern "C" int di_edge_attention_bwd(const void* q, const void* k, const void* v,
+                                     const void* pe, const void* nbr, const void* mask,
+                                     const void* in_ptr, const void* in_eid, const void* h,
+                                     const void* z, const void* dh, const void* de, void* dq,
+                                     void* dk, void* dv, void* dpe, void* dsum, int batch,
+                                     int num_nodes, int knn, int heads, int head_dim,
+                                     int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch<__nv_bfloat16>(q, k, v, pe, nbr, mask, h, z, dh, de, dq, dk,
-                                 dv, dpe, g, batch, num_nodes, knn, heads,
-                                 head_dim, s);
+    return launch<__nv_bfloat16>(q, k, v, pe, nbr, mask, in_ptr, in_eid, h, z, dh, de, dq, dk,
+                                 dv, dpe, dsum, batch, num_nodes, knn, heads, head_dim, s);
   }
-  return launch<float>(q, k, v, pe, nbr, mask, h, z, dh, de, dq, dk, dv, dpe,
-                       g, batch, num_nodes, knn, heads, head_dim, s);
+  return launch<float>(q, k, v, pe, nbr, mask, in_ptr, in_eid, h, z, dh, de, dq, dk, dv, dpe,
+                       dsum, batch, num_nodes, knn, heads, head_dim, s);
 }
 
 extern "C" const char* di_cuda_error_string(int code) {

@@ -1,4 +1,4 @@
-// Fused scatter-mode edge-attention forward for Hopper (sm_90a).
+// Fused scatter-mode edge-attention forward (K1) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_kernel` in deepinteract_tpu/ops/pallas_attention.py
 // (launched by `_pallas_forward`). For edge e = (i, k) of graph b, with
@@ -12,157 +12,165 @@
 //
 // Bound: bytes. Every element is touched once and there are ~2 flops per
 // byte. At B=1, N=256, K=20, H*D=128, float32: pe in 2.62 MB, e_out out
-// 2.62 MB, q/k/v in and h/z out 0.66 MB, nbr and mask 0.04 MB: ~5.9 MB,
-// ~1.8 us at 3.35 TB/s. This simple design does not reach it: every block
-// scans the whole nbr list (O(N^2 K) compares in N*K/blockDim barrier-
-// separated chunks) and walks its in-edges one after another. An in-edge
-// CSR built once per encode would remove the scan.
+// 2.62 MB, q/k/v in and h/z out 0.66 MB, indices and mask 0.04 MB: ~5.9 MB,
+// ~1.8 us at 3.35 TB/s.
 //
 // Design. The TPU kernel turns the scatter into one-hot [EB, N] matmuls on
 // the MXU and accumulates over a sequential edge-block grid in VMEM; both
-// exist for the TPU and are not carried over. Here one thread block owns
-// one (graph, destination node) and H*D lanes (rounded up to a warp
-// multiple): lane (h, d) holds q[dst, h, d]. The block walks the graph's
-// nbr list (N*K int32, L2-resident) in chunks of blockDim edges, picks the
-// edges whose destination is its node with a ballot and a prefix count,
-// and compacts their ids into shared memory in ascending edge-id order.
-// For each picked edge it loads k[src], v[src] and pe[e] (coalesced rows
-// of H*D), writes e_out[e] (each edge has exactly one destination, so
-// every e_out element is written exactly once), reduces the per-head sum
-// over D lanes with __shfl_xor (D is a power of two <= 32, so a head's
-// lanes sit in one warp), and accumulates w*v and w in float32 registers.
-// The sum order is fixed by the edge ids: no atomics, deterministic from
-// run to run. A destination with no in-edges ends with h = 0 and z = 0.
+// exist for the TPU and are not carried over. Here the scatter becomes a
+// gather by destination over an in-edge CSR (in_ptr [B, N+1], in_eid
+// [B, N*K]: each destination's edge ids in ascending order), built once per
+// encode by a stable sort of nbr (ops/cuda_attention.in_edge_csr) and
+// shared by every GT layer and by K2. So no block searches for its edges:
+// the work is linear in the edges, where a scan of nbr per node was
+// O(N^2 K).
+//   One block of 8 warps per (graph, destination, 32-lane row chunk). Each
+//   warp takes a contiguous slice of the destination's in-edges (about K/8
+//   of them), loads their ids in one coalesced read and broadcasts them with
+//   __shfl_sync, and keeps four edges' gathers of k[src], v[src] and pe[e]
+//   in flight at once: vector loads of up to 16 bytes per lane, q[dst] in
+//   registers. It writes e_out[e] (each edge has exactly one destination, so
+//   every e_out element is written exactly once), sums a head over its lanes
+//   with __shfl_xor, and accumulates w*v and w in float32 registers. The
+//   eight partial sums are combined in warp order through shared memory.
+//   Eight slices give a flagship graph (N=256) 2,048 warps, enough for the
+//   132 SMs, and a node's latency chain is one round of gathers.
+// Every sum has a fixed order (ascending edge id within a slice, slices in
+// order): no atomics, deterministic from run to run. A destination with no
+// in-edges ends with h = 0 and z = 0. Every nbr entry must lie in [0, N)
+// (padded nodes point at themselves): then every edge is in exactly one
+// slice.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "edge_attention_common.cuh"
 
 namespace {
 
-constexpr float kClip = 5.0f;
-constexpr float kEps = 1e-6f;
-constexpr int kMaxThreads = 1024;
+using namespace di;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ float clip(float x) { return fminf(fmaxf(x, -kClip), kClip); }
+constexpr int kUnroll = 4;  // a warp's in-edges in flight
 
-template <typename T>
-__global__ void edge_attention_fwd_kernel(
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads) edge_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ pe, const int32_t* __restrict__ nbr,
-    const float* __restrict__ mask, float* __restrict__ h_out,
-    T* __restrict__ e_out, float* __restrict__ z_out,
-    int num_nodes, int knn, int hd, int head_dim, float inv_sqrt_d) {
-  __shared__ int32_t picked[kMaxThreads];
-  __shared__ int32_t warp_hits[kMaxThreads / 32];
+    const T* __restrict__ pe, const int32_t* __restrict__ in_ptr,
+    const int32_t* __restrict__ in_eid, const float* __restrict__ mask,
+    float* __restrict__ h_out, T* __restrict__ e_out, float* __restrict__ z_out,
+    int num_nodes, int knn, int hd, int head_lanes, int chunks, float inv_sqrt_d) {
+  __shared__ float scratch[kWarps * (VEC + 1) * 32];
 
-  const int dst = blockIdx.x;
+  const int chunk = blockIdx.x % chunks;
+  const int dst = blockIdx.x / chunks;
   const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
-  const bool active = tid < hd;
+  const int lane = threadIdx.x & 31;
+  const int off = (chunk * 32 + lane) * VEC;  // first element of this lane
+  const bool active = off < hd;
 
-  const int num_edges = num_nodes * knn;
-  const int32_t* nbr_b = nbr + (int64_t)b * num_edges;
-  const float* mask_b = mask + (int64_t)b * num_edges;
-  const int64_t node_row0 = (int64_t)b * num_nodes;   // first node row of graph b
-  const int64_t edge_row0 = (int64_t)b * num_edges;   // first edge row of graph b
+  const int64_t node_row0 = (int64_t)b * num_nodes;
+  const int64_t edge_row0 = (int64_t)b * num_nodes * knn;
+  const int32_t* ptr = in_ptr + (int64_t)b * (num_nodes + 1);
+  int s0, s1;
+  warp_slice(ptr[dst], ptr[dst + 1], s0, s1);
 
-  const float qv = active ? to_f32(q[(node_row0 + dst) * hd + tid]) : 0.0f;
-  float acc = 0.0f;
-  float z = 0.0f;
+  float qv[VEC] = {};
+  if (active) load_vec(q + (node_row0 + dst) * hd + off, qv);
+  float acc[VEC + 1] = {};  // sum of w * v, then sum of w
 
-  for (int chunk = 0; chunk < num_edges; chunk += blockDim.x) {
-    const int e = chunk + tid;
-    const bool hit = e < num_edges && nbr_b[e] == dst;
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(ballot);
-    __syncthreads();
-    int offset = 0;
-    int total = 0;
-    for (int w = 0; w < num_warps; ++w) {
-      const int c = warp_hits[w];
-      offset += (w < warp) ? c : 0;
-      total += c;
-    }
-    if (hit) picked[offset + __popc(ballot & ((1u << lane) - 1u))] = e;
-    __syncthreads();
-
-    // `total` is the same in every thread, so the loop (and the shuffles
-    // in it) run converged.
-    for (int j = 0; j < total; ++j) {
-      const int eid = picked[j];
-      const int64_t src_row = node_row0 + eid / knn;
-      const float m = mask_b[eid];
-      float s = 0.0f;
-      float vv = 0.0f;
-      if (active) {
-        const float kv = to_f32(k[src_row * hd + tid]);
-        vv = to_f32(v[src_row * hd + tid]);
-        const float pv = to_f32(pe[(edge_row0 + eid) * hd + tid]);
-        s = clip(kv * qv * inv_sqrt_d) * pv;
-        store(&e_out[(edge_row0 + eid) * hd + tid], s * m);
+  for (int base = s0; base < s1; base += 32) {
+    const int cnt = min(32, s1 - base);  // warp-uniform
+    const int mine = lane < cnt ? in_eid[edge_row0 + base + lane] : 0;
+    for (int j = 0; j < cnt; j += kUnroll) {
+      int eid[kUnroll];
+      float m[kUnroll], kv[kUnroll][VEC], vv[kUnroll][VEC], pv[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        eid[u] = __shfl_sync(kFull, mine, (j + u) & 31);
+        m[u] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) kv[u][i] = vv[u][i] = pv[u][i] = 0.0f;
+        if (j + u < cnt) {
+          m[u] = mask[edge_row0 + eid[u]];
+          if (active) {
+            const int64_t src_off = (node_row0 + eid[u] / knn) * hd + off;
+            load_vec(k + src_off, kv[u]);
+            load_vec(v + src_off, vv[u]);
+            load_vec(pe + (edge_row0 + eid[u]) * hd + off, pv[u]);
+          }
+        }
       }
-      float head_sum = s;
-      for (int step = head_dim >> 1; step > 0; step >>= 1)
-        head_sum += __shfl_xor_sync(0xffffffffu, head_sum, step);
-      const float w = expf(clip(head_sum)) * m;
-      acc += w * vv;
-      z += w;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (j + u >= cnt) break;  // warp-uniform: the shuffles stay converged
+        float s[VEC], out[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          s[i] = clip(kv[u][i] * qv[i] * inv_sqrt_d) * pv[u][i];
+          out[i] = s[i] * m[u];
+        }
+        if (active) store_vec(e_out + (edge_row0 + eid[u]) * hd + off, out);
+        const float w = expf(clip(head_sum(s, head_lanes))) * m[u];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] += w * vv[u][i];
+        acc[VEC] += w;
+      }
     }
-    __syncthreads();  // `picked` and `warp_hits` are rewritten next chunk
   }
 
-  if (active) {
-    h_out[(node_row0 + dst) * hd + tid] = acc / (z + kEps);
-    z_out[(node_row0 + dst) * hd + tid] = z;
+  combine_warps(acc, scratch);
+  if ((threadIdx.x >> 5) == 0 && active) {
+    float hv[VEC], zv[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      hv[i] = acc[i] / (acc[VEC] + kEps);
+      zv[i] = acc[VEC];
+    }
+    store_vec(h_out + (node_row0 + dst) * hd + off, hv);
+    store_vec(z_out + (node_row0 + dst) * hd + off, zv);
   }
 }
 
 template <typename T>
-void launch(const void* q, const void* k, const void* v, const void* pe,
-            const void* nbr, const void* mask, void* h, void* e_out, void* z,
-            int batch, int num_nodes, int knn, int heads, int head_dim,
-            cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* pe, const void* in_ptr,
+           const void* in_eid, const void* mask, void* h, void* e_out, void* z, int batch,
+           int num_nodes, int knn, int heads, int head_dim, cudaStream_t stream) {
   const int hd = heads * head_dim;
-  const int threads = (hd + 31) / 32 * 32;
+  const void* const tp[] = {q, k, v, pe, e_out};
+  const void* const fp[] = {h, z};
+  const int vec = pick_vec<T>(hd, head_dim, tp, fp);
+  const int chunks = (hd / vec + 31) / 32;
   const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
-  edge_attention_fwd_kernel<T><<<dim3(num_nodes, batch), threads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(pe), static_cast<const int32_t*>(nbr),
-      static_cast<const float*>(mask), static_cast<float*>(h),
-      static_cast<T*>(e_out), static_cast<float*>(z),
-      num_nodes, knn, hd, head_dim, inv_sqrt_d);
+  const dim3 grid(num_nodes * chunks, batch);
+  return dispatch_vec<T>(vec, [&](auto vc) {
+    constexpr int VEC = decltype(vc)::value;
+    edge_attention_fwd_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(pe), static_cast<const int32_t*>(in_ptr),
+        static_cast<const int32_t*>(in_eid), static_cast<const float*>(mask),
+        static_cast<float*>(h), static_cast<T*>(e_out), static_cast<float*>(z), num_nodes,
+        knn, hd, head_dim / VEC, chunks, inv_sqrt_d);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Layouts, all contiguous:
 // q/k/v [B, N, H*D], pe and e_out [B, N*K, H*D] (float32 if is_bf16 == 0,
-// else bfloat16), nbr [B, N*K] int32, mask [B, N*K] float32, h and z
-// [B, N, H*D] float32. Requires H*D <= 1024 and head_dim a power of two
-// <= 32 (the wrapper checks). Returns cudaGetLastError() after the launch.
-extern "C" int di_edge_attention_fwd(
-    const void* q, const void* k, const void* v, const void* pe,
-    const void* nbr, const void* mask, void* h, void* e_out, void* z,
-    int batch, int num_nodes, int knn, int heads, int head_dim, int is_bf16,
-    void* stream) {
+// else bfloat16), in_ptr [B, N+1] and in_eid [B, N*K] int32 (the in-edge
+// CSR), mask [B, N*K] float32, h and z [B, N, H*D] float32. Requires
+// H*D <= 1024 and head_dim a power of two <= 32 (the wrapper checks).
+// Returns cudaGetLastError() after the launch.
+extern "C" int di_edge_attention_fwd(const void* q, const void* k, const void* v,
+                                     const void* pe, const void* in_ptr, const void* in_eid,
+                                     const void* mask, void* h, void* e_out, void* z,
+                                     int batch, int num_nodes, int knn, int heads,
+                                     int head_dim, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    launch<__nv_bfloat16>(q, k, v, pe, nbr, mask, h, e_out, z, batch,
-                          num_nodes, knn, heads, head_dim, s);
-  } else {
-    launch<float>(q, k, v, pe, nbr, mask, h, e_out, z, batch, num_nodes, knn,
-                  heads, head_dim, s);
+    return launch<__nv_bfloat16>(q, k, v, pe, in_ptr, in_eid, mask, h, e_out, z, batch,
+                                 num_nodes, knn, heads, head_dim, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(q, k, v, pe, in_ptr, in_eid, mask, h, e_out, z, batch, num_nodes,
+                       knn, heads, head_dim, s);
 }
 
 extern "C" const char* di_cuda_error_string(int code) {

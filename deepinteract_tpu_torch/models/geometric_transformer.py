@@ -218,24 +218,33 @@ class PlainEdgeModule(nn.Module):
         return self.linear(torch.cat([_edge_messages(orig_edge_feats), orig_edge_feats], -1))
 
 
-def _dispatch_attention(cfg: GTConfig, q, k, v, proj_e, nbr_idx, edge_mask):
-    """Route the edge attention: the CUDA kernels for CUDA tensors in
-    scatter mode under 'auto', the plain op otherwise. On the kernel path
-    an input that requires grad (with grad enabled) goes through
+def _attention_impl(cfg: GTConfig, x: torch.Tensor) -> str:
+    """'plain' or 'kernel': the route of the edge attention for tensors
+    on x's device (the CUDA kernels for CUDA tensors in scatter mode under
+    'auto')."""
+    if cfg.attention_impl != "auto":
+        return cfg.attention_impl
+    return "kernel" if x.is_cuda and cfg.attention_mode == "scatter" else "plain"
+
+
+def _dispatch_attention(cfg: GTConfig, q, k, v, proj_e, nbr_idx, edge_mask, prepared=None):
+    """Route the edge attention: the CUDA kernels on the kernel route, the
+    plain op otherwise. On the kernel path an input that requires grad
+    (with grad enabled) goes through
     :class:`~deepinteract_tpu_torch.ops.cuda_attention.EdgeAttention` (K1
-    forward, K2 backward); otherwise K1 runs alone. Returns (h_out, e_out)."""
-    impl = cfg.attention_impl
-    if impl == "auto":
-        impl = "kernel" if q.is_cuda and cfg.attention_mode == "scatter" else "plain"
-    if impl == "plain":
+    forward, K2 backward); otherwise K1 runs alone. ``prepared`` is the
+    graph's :func:`~deepinteract_tpu_torch.ops.cuda_attention.attention_graph`,
+    made once per encode; None makes it here. Returns (h_out, e_out)."""
+    if _attention_impl(cfg, q) == "plain":
         return edge_attention(q, k, v, proj_e, nbr_idx, edge_mask, mode=cfg.attention_mode)
     if cfg.attention_mode != "scatter":
         raise ValueError("the edge-attention kernel computes scatter mode only")
-    args = (q, k, v, proj_e, nbr_idx.to(torch.int32).contiguous(),
-            edge_mask.to(torch.float32).contiguous())
+    if prepared is None:
+        prepared = cuda_attention.attention_graph(nbr_idx, edge_mask)
+    args = (q, k, v, proj_e, prepared.nbr_idx, prepared.edge_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args[:4]):
-        return cuda_attention.EdgeAttention.apply(*args)
-    h_out, e_out, _ = cuda_attention.edge_attention_forward(*args)
+        return cuda_attention.EdgeAttention.apply(*args, *(prepared.in_edges or (None, None)))
+    h_out, e_out, _ = cuda_attention.edge_attention_forward(*args, in_edges=prepared.in_edges)
     return h_out, e_out
 
 
@@ -253,7 +262,7 @@ class MultiHeadGeometricAttention(nn.Module):
         self.V = GODense(ch, ch, bias=False)
         self.edge_feats_projection = GODense(ch, ch, bias=False)
 
-    def forward(self, graph: ProteinGraph, node_feats, edge_feats):
+    def forward(self, graph: ProteinGraph, node_feats, edge_feats, prepared=None):
         cfg = self.cfg
         h, d = cfg.num_heads, cfg.hidden // cfg.num_heads
         b, n, k = graph.nbr_idx.shape
@@ -262,7 +271,7 @@ class MultiHeadGeometricAttention(nn.Module):
         v = self.V(node_feats).reshape(b, n, h, d)
         proj_e = self.edge_feats_projection(edge_feats).reshape(b, n, k, h, d)
         h_out, e_out = _dispatch_attention(cfg, q, kk, v, proj_e, graph.nbr_idx,
-                                           graph.edge_mask())
+                                           graph.edge_mask(), prepared)
         # The kernel returns float32 accumulators; activations stay in the
         # compute dtype.
         h_out = h_out.to(node_feats.dtype).reshape(b, n, cfg.hidden)
@@ -294,7 +303,8 @@ class GeometricTransformerLayer(nn.Module):
             self.norm2_edge = FeatureNorm(cfg.norm_type, ch)
             self.edge_mlp = MLP(ch, cfg.dropout_rate)
 
-    def forward(self, graph: ProteinGraph, node_feats, edge_feats, orig_edge_feats):
+    def forward(self, graph: ProteinGraph, node_feats, edge_feats, orig_edge_feats,
+                prepared=None):
         cfg = self.cfg
         node_mask, edge_mask = graph.node_mask, graph.edge_mask()
         node_in1, edge_in1 = node_feats, edge_feats
@@ -306,7 +316,7 @@ class GeometricTransformerLayer(nn.Module):
 
         node_feats = self.norm1_node(node_feats, node_mask)
         edge_feats = self.norm1_edge(edge_feats, edge_mask)
-        node_attn, edge_attn = self.mha(graph, node_feats, edge_feats)
+        node_attn, edge_attn = self.mha(graph, node_feats, edge_feats, prepared)
 
         node_feats = self.O_node(self.dropout(node_attn))
         if cfg.residual:
@@ -354,10 +364,16 @@ class GeometricTransformer(nn.Module):
             edge_feats = self.init_edge_module(orig_edge_feats)
         else:
             edge_feats = self.init_edge_module(graph, orig_edge_feats)
+        # On the kernel route every layer (and its backward) shares one
+        # prepared edge index and in-edge CSR.
+        prepared = None
+        if _attention_impl(cfg, node_feats) == "kernel":
+            prepared = cuda_attention.attention_graph(graph.nbr_idx, graph.edge_mask())
         for name in self.layers:
             node_feats, edge_feats = getattr(self, name)(
-                graph, node_feats, edge_feats, orig_edge_feats)
+                graph, node_feats, edge_feats, orig_edge_feats, prepared)
         if cfg.num_layers > 0:
-            node_feats, _ = self.final_gt_layer(graph, node_feats, edge_feats, orig_edge_feats)
+            node_feats, _ = self.final_gt_layer(graph, node_feats, edge_feats, orig_edge_feats,
+                                                prepared)
         node_feats = node_feats * graph.node_mask[..., None].to(cfg.dtype)
         return node_feats, edge_feats
