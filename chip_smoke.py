@@ -26,6 +26,18 @@ Phases, in order; any failure exits non-zero:
      own, and one train step of the kernel path against one of the plain
      path from the same weights, batch and dropout seed, with the
      flagship's batch norm and with layer norm;
+  5b. the training lifecycle at the flagship width, under
+     ``torch.use_deterministic_algorithms(True)``: ``cli.train`` for two
+     epochs with a save after every step, the same preempted through the
+     fault plan in the middle of epoch 2 (it must exit 0 with the
+     preempted line) and resumed with ``--resume``, checked bitwise against
+     the uninterrupted run (weights, AdamW moments, schedule, history,
+     best/latest steps); the same without mid-epoch saves (asynchronous
+     epoch saves); ``cli.test --ckpt_name`` against ``Trainer.evaluate`` of
+     the restored best state and ``cli.predict --ckpt_name`` against
+     ``predict_complex`` of the restored model, with exact launch counts
+     around the resume, test and predict paths; the save, restore and
+     epoch-overhead times and the bytes of a step;
   6. times with CUDA events (warm-up, median of >= 20 runs): each kernel
      (on a prebuilt CSR, as the main path runs it) and the CSR build at
      N = 64, 128, 192, 256 and 512 beside each kernel's bound, the plain
@@ -43,9 +55,12 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -56,12 +71,15 @@ import numpy as np
 import torch
 
 from deepinteract_tpu_torch import constants
+from deepinteract_tpu_torch.cli import predict as predict_cli
+from deepinteract_tpu_torch.cli import test as test_cli
 from deepinteract_tpu_torch.cli import train as train_cli
+from deepinteract_tpu_torch.cli.args import model_config_from_args
 from deepinteract_tpu_torch.cli.predict import load_model, predict_complex
 from deepinteract_tpu_torch.data import features
 from deepinteract_tpu_torch.data.datasets import DIPSDataset
 from deepinteract_tpu_torch.data.graph import pad_graph, stack_complexes
-from deepinteract_tpu_torch.data.io import to_paired_complex
+from deepinteract_tpu_torch.data.io import load_complex_npz, save_complex_npz, to_paired_complex
 from deepinteract_tpu_torch.data.loader import BucketedLoader
 from deepinteract_tpu_torch.data.synthetic import (random_backbone, random_raw_complex,
                                                    random_residue_feats,
@@ -71,6 +89,9 @@ from deepinteract_tpu_torch.models.model import ModelConfig
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.ops import attention as plain
 from deepinteract_tpu_torch.ops import cuda_attention
+from deepinteract_tpu_torch.robustness import artifacts, faults
+from deepinteract_tpu_torch.training.checkpoint import PAYLOAD, CheckpointConfig, Checkpointer
+from deepinteract_tpu_torch.training.loop import Trainer, host_snapshot, read_sidecar
 from deepinteract_tpu_torch.training.objective import contact_loss
 from deepinteract_tpu_torch.training.steps import (create_train_state, dropout_generator,
                                                    eval_step, loss_and_grads, train_step)
@@ -507,7 +528,7 @@ def run_train_path(root, seed):
     """``cli.train`` for one epoch at the flagship width; returns the launch
     and build counts around it and the number of train steps."""
     args = train_cli.parse_args(["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
-                                 "--log_every", "1"])
+                                 "--log_every", "1", "--ckpt_dir", os.path.join(root, "ckpt")])
     reset_launches()
     history, test = train_cli.run(args)
     counts = launches()
@@ -655,10 +676,234 @@ def profile_train_step(state, batch) -> dict:
     return {"wall_ms": wall_ms, "kernels": len(kernels), "device_busy_ms": busy_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5b: the training lifecycle
+# ---------------------------------------------------------------------------
+
+LIFECYCLE_EPOCHS = 2
+PREEMPT_AT = len(COMPLEXES) + 2  # the fault fires at epoch 2's second train batch
+LIFECYCLE_PATHS = ("resume", "test", "predict_ckpt")
+
+
+def _tree_diff(a, b) -> float:
+    """Largest |a - b| over the tensors of two state dicts of one structure
+    (inf where the structure or a non-tensor value differs)."""
+    if isinstance(a, torch.Tensor):
+        return (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return math.inf
+        return max((_tree_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf
+        return max((_tree_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    return 0.0 if a == b else math.inf
+
+
+def _same_metric(a: float, b: float, tol: float) -> bool:
+    return (math.isnan(a) and math.isnan(b)) or abs(a - b) <= tol
+
+
+def _counted(fn):
+    """(fn(), (K1, K2 launches, CSR builds) during it)."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launches()
+
+
+def _expect_launches(label, counts, encode_pairs, train_steps):
+    expected = (LAUNCHES_PER_ENCODE_PAIR * encode_pairs, LAUNCHES_PER_ENCODE_PAIR * train_steps,
+                BUILDS_PER_ENCODE_PAIR * encode_pairs)
+    check(counts == expected, f"{label}: (K1, K2 launches, CSR builds) {counts}, expected "
+          f"{expected}")
+
+
+def _train_argv(root, ckpt_dir, seed, *extra):
+    return ["--dips_root", root, "--num_epochs", str(LIFECYCLE_EPOCHS), "--seed", str(seed),
+            "--log_every", "0", "--ckpt_dir", ckpt_dir, *extra]
+
+
+def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
+    """Phase 5b in a fresh directory. ``exact`` demands bitwise equality of
+    the resumed and the uninterrupted run; otherwise (a run without
+    deterministic algorithms) losses and metrics within 1e-5 and weights
+    and moments within 1e-4. ``flags`` go to every CLI call (none on the
+    card; a CPU rehearsal passes a small model and ``--device cpu``)."""
+
+    def train(ckpt_dir, *extra):
+        args = train_cli.parse_args(_train_argv(root, ckpt_dir, seed, *extra, *flags))
+        return _counted(lambda: train_cli.run(args))
+
+    tol_metric, tol_state = (0.0, 0.0) if exact else (1e-5, 1e-4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lifecycle_") as work:
+        root = os.path.join(work, "data")
+        write_tiny_npz_dataset(root, sizes=COMPLEXES, seed=seed, knn=constants.KNN,
+                               geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+        n_train, n_val, n_test = (len(DIPSDataset(root, m)) for m in ("train", "val", "test"))
+        dirs = {name: os.path.join(work, name)
+                for name in ("whole", "preempted", "epoch_saves", "sync_epoch_saves")}
+
+        # The uninterrupted run, with a save after every step.
+        (hist_a, test_a), counts_a = train(dirs["whole"], "--save_every_steps", "1")
+        _expect_launches("cli.train 2 epochs", counts_a,
+                         LIFECYCLE_EPOCHS * (n_train + n_val) + n_test, LIFECYCLE_EPOCHS * n_train)
+        # The same with epoch-boundary saves only, written asynchronously
+        # and synchronously.
+        (hist_c, _), _ = train(dirs["epoch_saves"])
+        (hist_s, _), _ = train(dirs["sync_epoch_saves"], "--sync_checkpoint")
+        # Preempted through the fault plan in mid-epoch 2, then resumed.
+        faults.configure({"train.sigterm": [PREEMPT_AT]})
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc, counts_b = _counted(lambda: train_cli.main(_train_argv(
+                    root, dirs["preempted"], seed, "--save_every_steps", "1", *flags)))
+        finally:
+            faults.reset()
+        preempted_line = [line for line in out.getvalue().splitlines()
+                          if line.startswith("training preempted (")]
+        check(rc == 0 and len(preempted_line) == 1 and "rerun with --resume" in preempted_line[0],
+              f"preempted cli.train: rc {rc}, output {out.getvalue()[-400:]!r}")
+        log(f"  preempted run: rc {rc}, launches {counts_b}; {preempted_line[0]}")
+        (hist_b, test_b), counts_resume = train(dirs["preempted"], "--save_every_steps", "1",
+                                                 "--resume")
+        remaining = LIFECYCLE_EPOCHS * n_train - (PREEMPT_AT - 1)
+        _expect_launches("resumed cli.train", counts_resume, remaining + n_val + n_test, remaining)
+
+        ckpts = {name: Checkpointer(CheckpointConfig(directory=d)) for name, d in dirs.items()}
+        finals = {name: ck.restore(None, which="last") for name, ck in ckpts.items()}
+        state_diff = _tree_diff(finals["whole"], finals["preempted"])
+        saves_diff = max(_tree_diff(finals["whole"], finals[name])
+                         for name in ("epoch_saves", "sync_epoch_saves"))
+        check(state_diff <= tol_state, f"resumed run's last/ state differs from the uninterrupted "
+              f"run's by {state_diff:.3g} (tol {tol_state})")
+        check(saves_diff <= tol_state, f"mid-epoch saves changed training: {saves_diff:.3g}")
+        check(len(hist_b) == 1 and hist_b[0]["epoch"] == LIFECYCLE_EPOCHS - 1,
+              f"resumed history epochs {[h['epoch'] for h in hist_b]}")
+        for key in ("train_loss", "val_ce", "train_steps"):
+            check(_same_metric(hist_b[0][key], hist_a[-1][key], tol_metric),
+                  f"resumed epoch {key} {hist_b[0][key]} vs uninterrupted {hist_a[-1][key]}")
+        for key, value in test_a.items():
+            check(_same_metric(test_b[key], value, tol_metric),
+                  f"resumed run's {key} {test_b[key]} vs uninterrupted {value}")
+        for name in ("preempted", "epoch_saves", "sync_epoch_saves"):
+            check((ckpts[name].best_step(), ckpts[name].latest_step())
+                  == (ckpts["whole"].best_step(), ckpts["whole"].latest_step()),
+                  f"{name}: best/latest steps differ from the uninterrupted run's")
+        side_a, side_b = read_sidecar(dirs["whole"]), read_sidecar(dirs["preempted"])
+        check(side_a["epoch"] == side_b["epoch"] and side_a["stopper_stale"]
+              == side_b["stopper_stale"] and _same_metric(side_a["stopper_best"],
+                                                          side_b["stopper_best"], tol_metric),
+              f"trainer_state.json differs: {side_a} vs {side_b}")
+        log(f"  resume: {remaining} train steps after the restore, launches K1 "
+            f"{counts_resume[0]} K2 {counts_resume[1]}, CSR builds {counts_resume[2]}; last/ "
+            f"state vs uninterrupted max |diff| {state_diff:.3g}, vs the epoch-saves-only runs "
+            f"{saves_diff:.3g} ({'bitwise' if exact else 'tolerance'}); best/latest step "
+            f"{ckpts['whole'].best_step()}/{ckpts['whole'].latest_step()}")
+
+        # cli.test from best/ against Trainer.evaluate of the restored state.
+        test_args = test_cli.parse_args(["--dips_root", root, "--ckpt_name", dirs["whole"],
+                                         "--seed", str(seed), "--csv_out",
+                                         os.path.join(work, "test_top_metrics.csv"), *flags])
+        metrics_t, counts_test = _counted(lambda: test_cli.run(test_args))
+        _expect_launches("cli.test", counts_test, n_test, 0)
+        model = load_model(model_config_from_args(test_args), device, ckpt_name=dirs["whole"])
+        trainer = Trainer(model)
+        ref_t = trainer.evaluate(trainer.init_state(), BucketedLoader(DIPSDataset(root, "test")),
+                                 stage="test")
+        check(metrics_t.keys() == ref_t.keys() and all(
+            _same_metric(metrics_t[k], v, 0.0) for k, v in ref_t.items()),
+            f"cli.test metrics {metrics_t} differ from Trainer.evaluate's {ref_t}")
+        # predict --ckpt_name against predict_complex of the restored model.
+        npz, out_dir = os.path.join(work, "complex.npz"), os.path.join(work, "predict")
+        save_complex_npz(npz, raw["graph1"], raw["graph2"], raw["examples"], complex_name="c")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc, counts_pred = _counted(lambda: predict_cli.main([
+                "--input_npz", npz, "--output_dir", out_dir, "--ckpt_name", dirs["whole"],
+                *flags]))
+        _expect_launches("predict --ckpt_name", counts_pred, 1, 0)
+        probs = np.load(os.path.join(out_dir, "contact_prob_map.npy"))
+        ref_p = predict_complex(load_complex_npz(npz), model, device)["contact_prob_map"]
+        check(rc == 0 and np.array_equal(probs, ref_p),
+              f"predict --ckpt_name: rc {rc}, max |diff| vs the restored model "
+              f"{np.abs(probs - ref_p).max():.3g}")
+        log(f"  cli.test --ckpt_name: launches {counts_test}, metrics equal Trainer.evaluate's "
+            f"(test_ce {metrics_t['test_ce']:.6f}); predict --ckpt_name: launches "
+            f"{counts_pred}, probabilities equal the restored model's")
+        epochs = {name: [{k: h[k] for k in ("train_seconds", "epoch_seconds",
+                                             "checkpoint_seconds")} for h in hist]
+                  for name, hist in (("save_every_step", hist_a), ("epoch_saves", hist_c),
+                                     ("sync_epoch_saves", hist_s))}
+        for name, rows in epochs.items():
+            log(f"  epoch wall ({name}): " + "; ".join(
+                f"epoch {i}: train {r['train_seconds'] * 1e3:.1f} ms, epoch "
+                f"{r['epoch_seconds'] * 1e3:.1f} ms, boundary save blocking "
+                f"{r['checkpoint_seconds'] * 1e3:.1f} ms" for i, r in enumerate(rows)))
+        return {"exact": exact, "resume_state_max_diff": state_diff,
+                "launches": {"resume": counts_resume, "test": counts_test,
+                             "predict_ckpt": counts_pred, "preempted": counts_b,
+                             "train_2_epochs": counts_a},
+                "epochs": epochs}
+
+
+def time_checkpoint(state, runs: int = 5) -> dict:
+    """A flagship train state's epoch-boundary save, synchronous: the host
+    snapshot (device to host copy) and the write of best/ and last/ (two
+    step directories, each payload + fsync + rename + integrity sidecar);
+    then the restore of last/ (verification, torch.load onto the card,
+    load into the state) and the verification alone. Medians of ``runs``,
+    host clock, synchronized."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as work:
+        ck = Checkpointer(CheckpointConfig(directory=work))
+        snap, write = [], []
+        for step in range(1, runs + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = host_snapshot(state)
+            t1 = time.perf_counter()
+            ck.save(step, payload, {"val_ce": 1.0 / step})
+            t2 = time.perf_counter()
+            snap.append((t1 - t0) * 1e3)
+            write.append((t2 - t1) * 1e3)
+        step_dir = ck.step_dir("last", runs)
+        nbytes = artifacts.read_sidecar(step_dir)["bytes"]
+        device = next(state.model.parameters()).device
+        restore, verify, load = [], [], []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            artifacts.verify_tree(step_dir, kind=artifacts.CHECKPOINT_KIND)
+            t1 = time.perf_counter()
+            torch.load(os.path.join(step_dir, PAYLOAD), map_location=device, weights_only=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ck.restore(state, which="last")
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            verify.append((t1 - t0) * 1e3)
+            load.append((t2 - t1) * 1e3)
+            restore.append((t3 - t2) * 1e3)
+    out = {"step_bytes": nbytes, "snapshot_ms": statistics.median(snap),
+           "write_best_and_last_ms": statistics.median(write),
+           "sync_save_ms": statistics.median(a + b for a, b in zip(snap, write)),
+           "restore_ms": statistics.median(restore), "verify_ms": statistics.median(verify),
+           "torch_load_ms": statistics.median(load)}
+    log(f"  checkpoint of the flagship state: {nbytes} B per step; sync save "
+        f"{out['sync_save_ms']:.1f} ms (snapshot {out['snapshot_ms']:.1f} ms + write of best/ "
+        f"and last/ {out['write_best_and_last_ms']:.1f} ms); restore {out['restore_ms']:.1f} ms "
+        f"(of which, timed alone: verification {out['verify_ms']:.1f} ms, torch.load onto the "
+        f"card {out['torch_load_ms']:.1f} ms); medians of {runs}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    # Phase 5b's bitwise resume check runs under deterministic algorithms,
+    # which need this set before cuBLAS starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -719,6 +964,25 @@ def main(argv=None) -> int:
                                   batches[-1], args.seed)
     del plain_model
 
+    log("== phase 5b: training lifecycle (cli.train --ckpt_dir / --resume, cli.test and "
+        "predict --ckpt_name; flagship width; deterministic algorithms)")
+    torch.use_deterministic_algorithms(True)
+    try:
+        lifecycle = run_lifecycle(raws[0], args.seed, device, exact=True)
+    except RuntimeError as err:
+        if "deterministic" not in str(err):
+            raise
+        op = str(err).splitlines()[0]
+        log(f"  deterministic algorithms refused an op ({op}); the resume is checked at the "
+            "train-step bar instead")
+        torch.use_deterministic_algorithms(False)
+        lifecycle = run_lifecycle(raws[0], args.seed, device, exact=False)
+        lifecycle["nondeterministic_op"] = op
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lifecycle["checkpoint"] = time_checkpoint(state)
+    log("  lifecycle: " + json.dumps(lifecycle))
+
     log("== phase 6: times (CUDA events, median of 20)")
     ktimes = time_kernels(rng, flagship, flagship_bwd)
     for (n1, n2), raw in zip(COMPLEXES, raws):
@@ -745,13 +1009,17 @@ def main(argv=None) -> int:
     common = {"route": "cuda", "library_ms": None, "parity": "pass",
               "csr_build_ms": at["csr_ms"],
               "csr_build_ms_by_n": {n: t["csr_ms"] for n, t in ktimes["by_n"].items()},
-              "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2]}}
+              "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2],
+                                     **{path: lifecycle["launches"][path][2]
+                                        for path in LIFECYCLE_PATHS}}}
     kernels = [{
         "name": "edge_attention_fwd",
         "source": "deepinteract_tpu_torch/csrc/edge_attention_fwd.cu",
         "replaces": "deepinteract_tpu/ops/pallas_attention.py:443",
         "launches": train_counts[0],
-        "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0]},
+        "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0],
+                             **{path: lifecycle["launches"][path][0]
+                                for path in LIFECYCLE_PATHS}},
         "max_abs_err": max(fwd_errs.values()),
         "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
         "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
@@ -763,7 +1031,9 @@ def main(argv=None) -> int:
         "source": "deepinteract_tpu_torch/csrc/edge_attention_bwd.cu",
         "replaces": "deepinteract_tpu/ops/pallas_attention.py:519",
         "launches": train_counts[1],
-        "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1]},
+        "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1],
+                             **{path: lifecycle["launches"][path][1]
+                                for path in LIFECYCLE_PATHS}},
         "max_abs_err": bwd_err,
         "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
         "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],

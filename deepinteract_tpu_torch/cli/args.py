@@ -68,6 +68,45 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--weight_classes", action="store_true",
                    help="1:5 positive class weighting")
     g.add_argument("--log_every", type=int, default=100)
+    g.add_argument("--eval_batch_size", type=int, default=1,
+                   help="complexes per val/test batch (metrics stay per complex)")
+    g.add_argument("--sync_checkpoint", action="store_true",
+                   help="save the epoch-boundary checkpoint synchronously instead of "
+                        "writing it on a worker thread while the next epoch trains")
+    g.add_argument("--ckpt_dir", type=str, default="checkpoints",
+                   help="checkpoint root of this run (best/, last/, mid/)")
+    add_restore_args(g)
+    g.add_argument("--fine_tune", action="store_true",
+                   help="warm-start the model from --ckpt_name's best/ step and freeze "
+                        "the decoder")
+    g.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint under --ckpt_dir")
+    g.add_argument("--find_lr", action="store_true",
+                   help="run an LR range test before training and use its suggestion")
+    g.add_argument("--stochastic_weight_avg", action="store_true",
+                   help="average the params over the last 20%% of epochs")
+    g.add_argument("--max_hours", type=float, default=None)
+
+    g = p.add_argument_group("fault tolerance")
+    g.add_argument("--no_preemption_guard", action="store_true",
+                   help="do not install SIGTERM/SIGINT handlers around fit (by default a "
+                        "preemption flushes the newest checkpoint and exits 0; rerun with "
+                        "--resume)")
+    g.add_argument("--data_skip_budget", type=int, default=0,
+                   help="train batches per epoch that may fail to load and be skipped "
+                        "(logged) instead of ending the run (0 = fail fast)")
+    g.add_argument("--save_every_steps", type=int, default=0,
+                   help="mid-epoch checkpoint cadence in train steps, with the loader "
+                        "cursor, so --resume re-pays at most N steps (0 = epoch "
+                        "boundaries only)")
+
+
+def add_restore_args(p) -> None:
+    """The flags that name a checkpoint to restore (train, test, predict)."""
+    p.add_argument("--ckpt_name", type=str, default=None,
+                   help="checkpoint directory to restore from (its best/ step)")
+    p.add_argument("--metric_to_track", type=str, default="val_ce",
+                   help="metric that ranks best/ ('min' iff its name contains 'ce')")
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -107,4 +146,10 @@ def optim_config_from_args(args: argparse.Namespace) -> OptimConfig:
 def loop_config_from_args(args: argparse.Namespace) -> LoopConfig:
     return LoopConfig(num_epochs=args.num_epochs, patience=args.patience,
                       min_delta=args.min_delta, seed=args.seed,
-                      weight_classes=args.weight_classes, log_every=args.log_every)
+                      weight_classes=args.weight_classes, log_every=args.log_every,
+                      metric_to_track=args.metric_to_track, ckpt_dir=args.ckpt_dir,
+                      swa=args.stochastic_weight_avg,
+                      max_time_seconds=args.max_hours * 3600 if args.max_hours else None,
+                      preemption_guard=not args.no_preemption_guard,
+                      save_every_steps=args.save_every_steps,
+                      async_checkpoint=not args.sync_checkpoint)

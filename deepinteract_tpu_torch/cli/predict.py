@@ -7,11 +7,13 @@ Port of ``deepinteract_tpu/cli/predict.py`` for ``--input_npz``. Writes
 * ``graph1_edge_feats.npy`` / ``graph2_edge_feats.npy``
 
 into ``--output_dir``. ``--weights`` takes a flat-path ``.npz`` of JAX
-variables (``weights.save_npz``); without it the model gets the port's
-seeded init. Runs on the GPU unless ``--device cpu`` is given.
+variables (``weights.save_npz``); ``--ckpt_name`` a checkpoint directory
+of the port's trainer, whose best/ step is restored; with neither the
+model gets the port's seeded init. Runs on the GPU unless ``--device
+cpu`` is given.
 
     python -m deepinteract_tpu_torch.cli.predict --input_npz X --output_dir Y \
-        [--weights W.npz] [--device cpu]
+        [--weights W.npz | --ckpt_name DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deepinteract_tpu_torch.cli.args import build_parser, model_config_from_args
+from deepinteract_tpu_torch.cli.args import (add_restore_args, build_parser,
+                                             model_config_from_args)
 from deepinteract_tpu_torch.data.graph import stack_complexes
 from deepinteract_tpu_torch.data.io import load_complex_npz, to_paired_complex
 from deepinteract_tpu_torch.device import resolve_device
 from deepinteract_tpu_torch.models.model import DeepInteract, ModelConfig
 from deepinteract_tpu_torch.models.policy import set_backend_precision
+from deepinteract_tpu_torch.training.checkpoint import CheckpointConfig, Checkpointer
 from deepinteract_tpu_torch.weights import init_weights, load_jax_variables, load_npz
 
 REPRESENTATIONS = ("graph1_node_feats", "graph2_node_feats",
@@ -36,12 +40,20 @@ REPRESENTATIONS = ("graph1_node_feats", "graph2_node_feats",
 
 
 def load_model(cfg: ModelConfig, device, weights: Optional[str] = None,
-               seed: int = 42) -> DeepInteract:
+               seed: int = 42, ckpt_name: Optional[str] = None,
+               metric_to_track: str = "val_ce") -> DeepInteract:
     """An eval-mode model on ``device``: JAX variables from a flat-path
-    ``.npz`` when ``weights`` is given, else the seeded init."""
+    ``.npz`` (``weights``), or the best/ step of a checkpoint directory
+    (``ckpt_name``, ranked by ``metric_to_track``), else the seeded init."""
+    if weights and ckpt_name:
+        raise ValueError("give --weights or --ckpt_name, not both")
     model = DeepInteract(cfg)
     if weights:
         load_jax_variables(model, load_npz(weights))
+    elif ckpt_name:
+        model.to(device)
+        Checkpointer(CheckpointConfig(directory=ckpt_name, metric_to_track=metric_to_track)
+                     ).restore(model, which="best", partial=True)
     else:
         init_weights(model, seed)
     return model.to(device).eval()
@@ -77,14 +89,18 @@ def main(argv=None) -> int:
     parser.add_argument("--output_dir", type=str, default=".")
     parser.add_argument("--weights", type=str, default=None,
                         help="flat-path .npz of JAX variables (weights.save_npz)")
+    add_restore_args(parser)
     args = parser.parse_args(argv)
+    if args.weights and args.ckpt_name:
+        parser.error("give --weights or --ckpt_name, not both")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         print(f"predict: {err}", file=sys.stderr)
         return 2
 
-    model = load_model(model_config_from_args(args), device, args.weights, args.seed)
+    model = load_model(model_config_from_args(args), device, args.weights, args.seed,
+                       args.ckpt_name, args.metric_to_track)
     out = predict_complex(load_complex_npz(args.input_npz), model, device)
     os.makedirs(args.output_dir, exist_ok=True)
     saved = []

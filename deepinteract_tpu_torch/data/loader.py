@@ -8,10 +8,17 @@ edges. The epoch plan (bucket order, seeded shuffle, ``drop_remainder``)
 is the JAX loader's with per-step dispatch (``dispatch_run=1``), batch
 for batch. Batches are CPU tensors; the trainer
 moves them to its device.
+
+Resume cursor: ``iter_epoch(epoch, start_batch, skips_used)`` starts an
+epoch at a consumed-batch position without loading the batches before it,
+and ``skip_budget`` lets up to that many batches per epoch fail to load
+(logged, dropped) before a load error is raised; ``skips_before`` is the
+trainer's ledger of those drops. Single process only.
 """
 
 from __future__ import annotations
 
+import logging
 import random
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
@@ -19,6 +26,9 @@ from typing import Dict, Iterator, List, Tuple
 from deepinteract_tpu_torch import constants
 from deepinteract_tpu_torch.data.graph import PairedComplex, pick_bucket, stack_complexes
 from deepinteract_tpu_torch.data.io import to_paired_complex
+from deepinteract_tpu_torch.robustness import faults
+
+logger = logging.getLogger(__name__)
 
 
 def make_bucket_fn(pad_to_max_bucket: bool = False, diagonal_buckets: bool = False):
@@ -43,12 +53,20 @@ class BucketedLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_remainder: bool = False, seed: int = 42,
-                 pad_to_max_bucket: bool = False, diagonal_buckets: bool = False):
+                 pad_to_max_bucket: bool = False, diagonal_buckets: bool = False,
+                 skip_budget: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
         self.seed = seed
+        # Batches per epoch that may fail to load and be dropped (the whole
+        # batch: a smaller one would change shapes); over budget the load
+        # error is raised. 0 fails fast.
+        self.skip_budget = max(0, skip_budget)
+        # Cumulative drops at each consumed-batch ordinal of the epoch being
+        # iterated: the trainer's resume ledger.
+        self._skips_at: Dict[int, int] = {}
         bucket_fn = make_bucket_fn(pad_to_max_bucket, diagonal_buckets)
         buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
         for idx, (n1, n2) in enumerate(dataset.lengths()):
@@ -80,13 +98,49 @@ class BucketedLoader:
             rng.shuffle(plan)
         return plan
 
-    def iter_epoch(self, epoch: int = 0) -> Iterator[PairedComplex]:
-        for (b1, b2), chunk in self.epoch_plan(epoch):
-            raws = [self.dataset[idx] for idx in chunk]
-            yield stack_complexes([
-                to_paired_complex(raw, n_pad1=b1, n_pad2=b2,
-                                  input_indep=raw.get("input_indep", False))
-                for raw in raws])
+    def skips_before(self, batches_consumed: int) -> int:
+        """Batches dropped by the skip budget before the given consumed-batch
+        ordinal of the epoch last iterated."""
+        if batches_consumed <= 0:
+            return 0
+        return int(self._skips_at.get(int(batches_consumed), 0))
+
+    def _load(self, bucket: Tuple[int, int], chunk: List[int]) -> PairedComplex:
+        faults.maybe_raise("loader.batch", lambda: ValueError("injected corrupt complex"))
+        b1, b2 = bucket
+        raws = [self.dataset[idx] for idx in chunk]
+        return stack_complexes([
+            to_paired_complex(raw, n_pad1=b1, n_pad2=b2,
+                              input_indep=raw.get("input_indep", False))
+            for raw in raws])
+
+    def iter_epoch(self, epoch: int = 0, start_batch: int = 0,
+                   skips_used: int = 0) -> Iterator[PairedComplex]:
+        """The epoch's batches from consumed-batch ``start_batch`` on, with
+        ``skips_used`` of the budget already spent before it: the first
+        ``start_batch + skips_used`` plan entries were paid before a
+        checkpoint and are passed over unloaded (the plan is fixed by seed
+        and epoch)."""
+        skips_left = self.skip_budget - max(0, skips_used)
+        paid = max(0, start_batch) + max(0, skips_used)
+        produced, cum_skips = max(0, start_batch), max(0, skips_used)
+        self._skips_at = {}
+        for pos, (bucket, chunk) in enumerate(self.epoch_plan(epoch)):
+            if pos < paid:
+                continue
+            try:
+                batch = self._load(bucket, chunk)
+            except Exception as exc:
+                if skips_left <= 0:
+                    raise
+                skips_left -= 1
+                cum_skips += 1
+                logger.warning("skipping corrupt batch (bucket %sx%s, items %s): %s - %d "
+                               "skip(s) left this epoch", *bucket, chunk, exc, skips_left)
+                continue
+            produced += 1
+            self._skips_at[produced] = cum_skips
+            yield batch
 
     def targets(self) -> List[str]:
         """Target names in epoch-0 order (for the test CSV)."""

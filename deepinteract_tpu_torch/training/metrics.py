@@ -1,7 +1,7 @@
 """Per-complex evaluation metrics + median aggregation + CSV export.
 
 Numpy copy of ``deepinteract_tpu/training/metrics.py``; the CSV is written
-through :func:`atomic_write` below instead of ``robustness.artifacts``.
+through ``robustness.artifacts.atomic_write``.
 
 Reference semantics reproduced exactly:
 
@@ -34,25 +34,11 @@ unbatched per-complex tensors.
 from __future__ import annotations
 
 import math
-import os
-import tempfile
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-
-def atomic_write(path: str, text: str) -> None:
-    """Write ``text`` to ``path`` through a temporary file in the same
-    directory and a rename, so a reader never sees a torn file."""
-    directory = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp-", suffix=os.path.basename(path))
-    try:
-        with os.fdopen(fd, "w") as f:
-            f.write(text)
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
+from deepinteract_tpu_torch.robustness import artifacts
 
 
 def top_k_prec(sorted_indices: np.ndarray, labels: np.ndarray, k: int) -> float:
@@ -203,7 +189,7 @@ def write_topk_csv(
             row.append(repr(v) if not math.isnan(v) else "")
         row.append(str(target))
         lines.append(",".join(row))
-    atomic_write(path, "\n".join(lines) + "\n")
+    artifacts.atomic_write(path, "\n".join(lines) + "\n")
 
 
 def gather_pair_predictions(probs: np.ndarray, examples: np.ndarray, example_mask: np.ndarray):

@@ -19,14 +19,17 @@ written out here:
   does (``acc += (g - acc) / (i + 1)``); the schedule and Adam's count move
   once per real update, and the parameters do not move in between.
 
-Gradients are read from ``p.grad`` and never modified.
+Gradients are read from ``p.grad`` and never modified. ``state_dict`` /
+``load_state_dict`` carry AdamW's moments and count, the schedule's step
+and the accumulator, so a checkpoint taken between two micro-steps resumes
+exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.optim.lr_scheduler import LambdaLR
@@ -121,7 +124,7 @@ class Optimizer:
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  cfg: Optional[OptimConfig] = None, frozen_prefixes: Sequence[str] = ()):
         self.cfg = cfg = cfg or OptimConfig()
-        frozen = tuple(frozen_prefixes)
+        self.frozen_prefixes = frozen = tuple(frozen_prefixes)
         self.params = [p for name, p in named_params if name.split(".")[0] not in frozen]
         self.adamw = AdamW(self.params, lr=cfg.lr, weight_decay=cfg.weight_decay)
         self.schedule = LambdaLR(self.adamw, cosine_warm_restarts(cfg))
@@ -153,3 +156,26 @@ class Optimizer:
         self.schedule.step()
         return True
 
+    def state_dict(self) -> Dict:
+        """AdamW (moments, count, the current rate), the schedule's step,
+        the accumulator (``_acc``/``_micro``: plain attributes, not torch
+        optimizer state) and the frozen prefixes the parameter list was
+        cut by. Tensors are the live ones."""
+        return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict(),
+                "acc": None if self._acc is None else list(self._acc),
+                "micro": self._micro, "frozen_prefixes": list(self.frozen_prefixes)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output. A state saved over another
+        parameter list (another set of frozen prefixes) is refused."""
+        if tuple(state["frozen_prefixes"]) != self.frozen_prefixes:
+            raise ValueError(
+                f"optimizer state was saved with frozen prefixes "
+                f"{tuple(state['frozen_prefixes'])}, this optimizer has "
+                f"{self.frozen_prefixes}: restore the model only (partial=True)")
+        self.adamw.load_state_dict(state["adamw"])
+        self.schedule.load_state_dict(state["schedule"])
+        acc = state["acc"]
+        self._acc = None if acc is None else [
+            a.to(device=p.device, dtype=p.dtype).clone() for a, p in zip(acc, self.params)]
+        self._micro = int(state["micro"])

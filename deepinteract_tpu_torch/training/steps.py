@@ -5,7 +5,10 @@ Port of ``deepinteract_tpu/training/steps.py`` (``create_train_state``,
 batch statistics; the state adds the optimizer (AdamW and its schedule),
 the step counter and the seed. Step ``s`` draws its dropout masks from a
 generator seeded with ``(seed, s)`` alone, the counterpart of
-``fold_in(dropout_rng, step)``, so any step can be replayed on its own.
+``fold_in(dropout_rng, step)``, so any step can be replayed on its own,
+and a checkpoint needs no generator state: ``TrainState.state_dict``
+holds the model (parameters and batch-norm running statistics), the
+optimizer (``Optimizer.state_dict``), ``step``, ``bad_steps`` and ``seed``.
 The JAX package's ``multi_*_step`` and ``pack_tree`` amortize the TPU's
 host round trip and have no counterpart here.
 """
@@ -34,6 +37,23 @@ class TrainState:
     step: int = 0
     # Consecutive non-finite (skipped) steps under the guard.
     bad_steps: int = 0
+
+    def state_dict(self) -> Dict:
+        """Everything a resume needs, as live tensors. Dropout masks come
+        from (seed, step) alone (:func:`dropout_generator`), so no
+        generator state is kept."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "bad_steps": self.bad_steps, "seed": self.seed}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore :meth:`state_dict`'s output in place. The optimizer part
+        is refused when it was saved over another parameter list (a
+        fine-tune state, whose frozen prefix is left out, takes only the
+        model)."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.model.load_state_dict(state["model"])
+        self.step, self.bad_steps, self.seed = (int(state["step"]), int(state["bad_steps"]),
+                                                int(state["seed"]))
 
 
 def create_train_state(model: DeepInteract, seed: int = 42,

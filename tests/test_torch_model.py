@@ -156,6 +156,13 @@ def test_bfloat16_policy_runs_on_cpu(carried):
     assert reps["graph1_node_feats"].dtype == torch.bfloat16
 
 
+# The training lifecycle's modules, named so that the check below fails if
+# one of them stops being importable on its own.
+LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
+    "robustness.faults", "robustness.artifacts", "robustness.preemption",
+    "training.checkpoint", "training.lr_finder", "cli.test"))
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -163,6 +170,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = [m for m in {LIFECYCLE_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))"
         " or m == 'deepinteract_tpu' or m.startswith('deepinteract_tpu.')]\n"
         "assert not bad, bad\n"

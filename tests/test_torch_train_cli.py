@@ -20,7 +20,7 @@ def test_train_cli_one_epoch_on_cpu(tmp_path, capsys):
     csv = tmp_path / "test_top_metrics.csv"
     rc = train_cli.main(["--dips_root", str(tmp_path / "dips"), "--num_epochs", "1",
                          "--device", "cpu", "--log_every", "1", "--weight_classes",
-                         "--test_csv", str(csv), *TINY])
+                         "--test_csv", str(csv), "--ckpt_dir", str(tmp_path / "ckpt"), *TINY])
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     steps = [line for line in lines if line.startswith("epoch 0 step")]
@@ -39,7 +39,7 @@ def test_train_cli_history_and_early_stop(tmp_path):
     write_tiny_npz_dataset(str(tmp_path), n_complexes=2)
     args = train_cli.parse_args(["--dips_root", str(tmp_path), "--num_epochs", "4",
                                  "--patience", "1", "--min_delta", "1e9", "--device", "cpu",
-                                 *TINY])
+                                 "--ckpt_dir", str(tmp_path / "ckpt"), *TINY])
     history, test = train_cli.run(args)
     assert [h["epoch"] for h in history] == [0, 1]
     assert all(h["train_steps"] == 2 and h["train_skipped_steps"] == 0 for h in history)
