@@ -9,8 +9,8 @@ Phases, in order; any failure exits non-zero:
   3. kernel parity on the card: the in-edge CSR against a CPU stable
      argsort; each kernel's wrapper against its plain PyTorch version at
      the main paths' shapes (flagship f32 and bf16, de=None, a hub
-     destination with over 1,000 in-edges, the N=512 bucket, a node
-     without in-edges, rows wider than a warp, an odd head count),
+     destination with over 1,000 in-edges, the N=512 and N=768 buckets,
+     a node without in-edges, rows wider than a warp, an odd head count),
      outputs pre-filled with NaN, and two calls bitwise equal; the
      edge-attention autograd Function (K1 forward, K2 backward) against
      autograd through the plain forward;
@@ -45,7 +45,19 @@ Phases, in order; any failure exits non-zero:
      decode; the train step per complex (host clock around synchronized
      steps, median of 10) with its peak memory and its split into
      forward, backward and optimizer; one step of the largest complex
-     under torch.profiler for its kernel count and device busy share.
+     under torch.profiler for its kernel count and device busy share;
+  7. the model configurations beyond the flagship decoder, at the
+     flagship encoder width with seeded weights: predict with the DeepLab
+     decoder (resnet34, os 16, on the three complexes; os 8 on one), with
+     tiled decoding of a 600x450 complex (buckets 768x512, six 256x256
+     tiles) on the dilated and the DeepLab decoder, with the GCN encoder
+     and with regional attention, each with exact launch counts, peak
+     memory, encode / decode / wall times and its logits against the
+     plain attention's; the tiled logits against direct decodes of the
+     same tiles; DeepLab's factorized stem against its materialized one;
+     one ``cli.train`` epoch with the DeepLab decoder (the three
+     complexes) and with tiled decoding (complexes of two tiles), with
+     exact launch counts, peak memory and a timed train step.
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` JSON line. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -78,14 +90,16 @@ from deepinteract_tpu_torch.cli.args import model_config_from_args
 from deepinteract_tpu_torch.cli.predict import load_model, predict_complex
 from deepinteract_tpu_torch.data import features
 from deepinteract_tpu_torch.data.datasets import DIPSDataset
-from deepinteract_tpu_torch.data.graph import pad_graph, stack_complexes
+from deepinteract_tpu_torch.data.graph import pad_graph, pick_bucket, stack_complexes
 from deepinteract_tpu_torch.data.io import load_complex_npz, save_complex_npz, to_paired_complex
 from deepinteract_tpu_torch.data.loader import BucketedLoader
 from deepinteract_tpu_torch.data.synthetic import (random_backbone, random_raw_complex,
                                                    random_residue_feats,
                                                    write_tiny_npz_dataset)
+from deepinteract_tpu_torch.models.interaction import interaction_tensor
 from deepinteract_tpu_torch.models.layers import dropout_rng
 from deepinteract_tpu_torch.models.model import ModelConfig
+from deepinteract_tpu_torch.models.stem import PairFactors
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.ops import attention as plain
 from deepinteract_tpu_torch.ops import cuda_attention
@@ -103,7 +117,7 @@ LAUNCHES_PER_ENCODE_PAIR = 4  # 2 GT layers x 2 siamese encodes
 BUILDS_PER_ENCODE_PAIR = 2  # one in-edge CSR per encode
 # Counted around the main paths: K1 launches, K2 launches, CSR builds.
 COUNTERS = (cuda_attention.edge_attention_forward, cuda_attention.edge_attention_backward)
-TIMED_N = {64: 50, 128: 100, 192: 180, 256: 200, 512: 450}  # bucket -> real nodes
+TIMED_N = {64: 50, 128: 100, 192: 180, 256: 200, 512: 450, 768: 600}  # bucket -> real nodes
 
 
 def log(msg: str) -> None:
@@ -387,12 +401,13 @@ def build_kernels() -> None:
 def kernel_parity(rng, device="cuda"):
     """Phase 3 (on CPU tensors with ``device="cpu"``, a rehearsal of the
     wrappers' plain versions). Returns (flagship inputs, their K2 inputs, K1's errors at
-    the flagship, K2's largest error there)."""
+    the flagship, K2's largest error there, (K1's, K2's) largest error at N=768)."""
     log("== phase 3: kernel parity on the card")
     f32 = torch.float32
     flagship = attention_case(rng, 1, 200, 256, 20, 4, 32, f32, device=device)
     hub = attention_case(rng, 1, 200, 256, 20, 4, 32, f32, hub=(5, 64), device=device)
     n512 = attention_case(rng, 1, 450, 512, 20, 4, 32, f32, device=device)
+    n768 = attention_case(rng, 1, 600, 768, 20, 4, 32, f32, device=device)
     orphan = attention_case(rng, 2, 50, 64, 20, 4, 8, f32, orphan=3, device=device)
     # H*D = 1024: rows of 8 warp-wide chunks (f32) or 4 at 8 elements per
     # lane (bf16). H*D = 48 (3 heads): one element per lane, a part-filled
@@ -403,23 +418,25 @@ def kernel_parity(rng, device="cuda"):
              ("flagship bf16", to_bf16(flagship), None),
              ("hub: node 5 takes every edge of nodes 0-63 (B=1 N=256/200)", hub, None),
              ("N=512 bucket (B=1 N=512/450)", n512, None),
+             ("N=768 bucket, a tiled chain's (B=1 N=768/600)", n768, None),
              ("B=2 N=64/50 D=8 with an orphan node", orphan, 3),
              ("H*D=1024 (B=1 N=128/100 H=32 D=32)", wide, None),
              ("H*D=1024 bf16", to_bf16(wide), None),
              ("3 heads (B=2 N=64/50 H=3 D=16)", odd, None))
     bf16 = lambda args: args[0].dtype == torch.bfloat16  # noqa: E731
     fwd_errs = [check_attention(name, args, 3e-2 if bf16(args) else 1e-5, orphan=orph)
-                for name, args, orph in cases][0]
+                for name, args, orph in cases]
     flagship_bwd = backward_case(rng, flagship)
     bwd_err = check_backward("flagship f32", flagship_bwd, 1e-4)
     check_backward("flagship f32, de=None", backward_case(rng, flagship, with_de=False), 1e-4)
-    for name, args, orph in cases[1:]:
-        check_backward(name, backward_case(rng, args), 3e-2 if bf16(args) else 1e-4,
-                       orphan=orph)
+    bwd_errs = [check_backward(name, backward_case(rng, args), 3e-2 if bf16(args) else 1e-4,
+                               orphan=orph) for name, args, orph in cases[1:]]
+    at768 = [name for name, _, _ in cases].index("N=768 bucket, a tiled chain's (B=1 N=768/600)")
+    n768_errs = (max(fwd_errs[at768].values()), bwd_errs[at768 - 1])
     check_autograd("flagship f32", flagship, 1e-4)
     check_autograd("flagship f32, e_out unused", flagship, 1e-4, with_de=False)
     check_autograd("flagship bf16", to_bf16(flagship), 3e-2)
-    return flagship, flagship_bwd, fwd_errs, bwd_err
+    return flagship, flagship_bwd, fwd_errs[0], bwd_err, n768_errs
 
 
 def time_kernels(rng, flagship, flagship_bwd) -> dict:
@@ -493,9 +510,10 @@ def run_predict_path(model, plain_model, raws, device):
     return total, diffs
 
 
-def time_predict(model, raw, device) -> dict:
+def time_predict(model, raw, device, runs: int = 20) -> dict:
     """Encode (both chains) and decode ms from CUDA events, and the whole
-    predict_complex call (host to host) from the wall clock."""
+    predict_complex call (host to host) from the wall clock; medians of
+    ``runs``."""
     cx = stack_complexes([to_paired_complex(raw)]).to(device)
     model.eval()
     with torch.inference_mode():
@@ -509,10 +527,10 @@ def time_predict(model, raw, device) -> dict:
         def decode():
             model.decode(f1, f2, cx.graph1.node_mask, cx.graph2.node_mask)
 
-        enc = time_ms(encode)
-        dec = time_ms(decode)
+        enc = time_ms(encode, runs=runs)
+        dec = time_ms(decode, runs=runs)
     walls = []
-    for _ in range(20):
+    for _ in range(runs):
         t0 = time.perf_counter()
         predict_complex(raw, model, device)
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -897,6 +915,235 @@ def time_checkpoint(state, runs: int = 5) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: model configurations
+# ---------------------------------------------------------------------------
+
+TILED_COMPLEX = (600, 450)  # buckets 768 x 512: 3 x 2 tiles of 256 x 256
+TILED_TRAIN = ((300, 200), (280, 210))  # buckets 512 x 256: two tiles per step
+STEM_BAR = dict(rtol=1e-3, atol=1e-4)  # the JAX package's tests/test_stem.py
+TILE_BAR = dict(rtol=4e-4, atol=1e-4)  # the JAX package's tests/test_tiled_decoder.py
+
+
+def config_variants(cfg: ModelConfig) -> dict:
+    """name -> (model config, which complexes it predicts: 'smoke' for the
+    three of COMPLEXES, 'one' for the first, 'tiled' for TILED_COMPLEX)."""
+    deeplab = dataclasses.replace(cfg, interact_module_type="deeplab")
+    return {
+        "deeplab": (deeplab, "smoke"),
+        "deeplab_os8": (dataclasses.replace(deeplab, deeplab=dataclasses.replace(
+            deeplab.deeplab, output_stride=8)), "one"),
+        "tiled": (dataclasses.replace(cfg, tile_pair_map=True), "tiled"),
+        "tiled_deeplab": (dataclasses.replace(deeplab, tile_pair_map=True), "tiled"),
+        "gcn": (dataclasses.replace(cfg, gnn_layer_type="gcn"), "one"),
+        "attention": (dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, use_attention=True)), "one"),
+    }
+
+
+def plain_variant(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, attention_impl="plain"))
+
+
+def expected_predict_counts(cfg: ModelConfig) -> tuple:
+    """(K1, K2, CSR builds) of one predict: the GT runs K1 in each of its
+    2 layers of both encodes; the GCN launches no kernel; both build one
+    in-edge CSR per encode."""
+    k1 = 0 if cfg.gnn_layer_type == "gcn" else LAUNCHES_PER_ENCODE_PAIR
+    return (k1, 0, BUILDS_PER_ENCODE_PAIR)
+
+
+def rounding_spread(module, fn, base, seeds=(1, 2)) -> float:
+    """Largest |fn() - base| (numpy arrays) when every parameter of
+    ``module`` moves by 1e-7 relative (float32 rounding), one move per
+    seed: how far float32 rounding alone moves the output. The weights
+    are put back."""
+    weights = {k: v.clone() for k, v in module.state_dict().items()}
+    params = {k for k, _ in module.named_parameters()}
+    spread = 0.0
+    for s in seeds:
+        gen = torch.Generator().manual_seed(s)
+        module.load_state_dict({k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen)
+                                        .to(v.device)) if k in params else v
+                                for k, v in weights.items()})
+        spread = max(spread, float(np.abs(fn() - base).max()))
+    module.load_state_dict(weights)
+    return spread
+
+
+def run_config_predict(name, cfg, raws, seed, device, smi, runs) -> dict:
+    """Predict each of ``raws`` with exact launch counts and peak memory,
+    its logits against the plain attention's, and its encode / decode /
+    wall times (medians of ``runs``). The logit bar is rtol 1e-4 and atol
+    1e-4 plus four times the plain path's rounding spread
+    (:func:`rounding_spread`), as compare_train_step's: the DeepLab
+    decoder turns the encoder's ~1e-6 float32 differences between K1 and
+    the plain attention into ~1e-4 on the logits, and moves as far when
+    only the weights' rounding moves."""
+    model = load_model(cfg, device, seed=seed)
+    plain_model = load_model(plain_variant(cfg), device, seed=seed)
+    plain_model.load_state_dict(model.state_dict())
+    expected = expected_predict_counts(cfg)
+    out = {"launches": (0, 0, 0), "max_logit_diff": 0.0, "complexes": []}
+    for raw in raws:
+        n1 = raw["graph1"]["node_feats"].shape[0]
+        n2 = raw["graph2"]["node_feats"].shape[0]
+        torch.cuda.reset_peak_memory_stats()
+        res, counts = _counted(lambda: predict_complex(raw, model, device))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(counts == expected, f"predict {name} {n1}x{n2}: (K1, K2 launches, CSR builds) "
+              f"{counts}, expected {expected}")
+        probs = res["contact_prob_map"]
+        check(probs.shape == (n1, n2) and bool(np.isfinite(probs).all()),
+              f"predict {name} {n1}x{n2}: probabilities {probs.shape}, not finite in [0, 1]")
+        ref, plain_counts = _counted(lambda: predict_complex(raw, plain_model, device))
+        check(plain_counts[:2] == (0, 0), f"predict {name}: the plain path launched a kernel")
+        diff = float(np.abs(ref["logits"] - res["logits"]).max())
+        spread = rounding_spread(plain_model, lambda: predict_complex(
+            raw, plain_model, device)["logits"], ref["logits"])
+        check(np.allclose(res["logits"], ref["logits"], rtol=1e-4, atol=1e-4 + 4 * spread),
+              f"predict {name} {n1}x{n2}: kernel vs plain logits differ by {diff:.3g} (rtol "
+              f"1e-4, atol 1e-4 + 4 x spread {spread:.3g})")
+        t = time_predict(model, raw, device, runs=runs)
+        buckets = tuple(pick_bucket(n) for n in (n1, n2))
+        log(f"  predict {name} {n1}x{n2} (buckets {buckets[0]}/{buckets[1]}): wall "
+            f"{t['predict_wall_ms']:.3f} ms, encode x2 {t['encode_ms']:.3f} ms, decode "
+            f"{t['decode_ms']:.3f} ms (median of {runs}); peak {peak:.3f} GiB; K1 {counts[0]} "
+            f"K2 {counts[1]} CSR builds {counts[2]}; max |logits kernel - plain| {diff:.3g} "
+            f"(rtol 1e-4, atol 1e-4 + 4 x spread {spread:.3g}); [{smi}]")
+        out["launches"] = tuple(a + b for a, b in zip(out["launches"], counts))
+        out["max_logit_diff"] = max(out["max_logit_diff"], diff)
+        out["max_spread"] = max(out.get("max_spread", 0.0), spread)
+        out["complexes"].append({"n": (n1, n2), "buckets": buckets, "peak_gib": peak,
+                                 "logit_diff": diff, "spread": spread, **t})
+    return out
+
+
+def _encoded(model, raw, device):
+    cx = stack_complexes([to_paired_complex(raw)]).to(device)
+    f1, _ = model.encode(cx.graph1)
+    f2, _ = model.encode(cx.graph2)
+    return f1, f2, cx.graph1.node_mask, cx.graph2.node_mask
+
+
+@torch.inference_mode()
+def check_tiles_against_direct(name, model, raw, device) -> float:
+    """Each tile of the tiled decode against the decoder run directly on
+    that tile's chain slices (the JAX package's own oracle)."""
+    model.eval()
+    f1, f2, m1, m2 = _encoded(model, raw, device)
+    tiled = model.decode(f1, f2, m1, m2)
+    t = model.cfg.tile_size
+    worst = 0.0
+    for ti in range(f1.shape[1] // t):
+        for tj in range(f2.shape[1] // t):
+            rows, cols = slice(ti * t, (ti + 1) * t), slice(tj * t, (tj + 1) * t)
+            direct = model.decoder(PairFactors(f1[:, rows], f2[:, cols], m1[:, rows],
+                                               m2[:, cols]),
+                                   m1[:, rows, None] & m2[:, None, cols])
+            got = tiled[:, rows, cols]
+            worst = max(worst, (got - direct).abs().max().item())
+            check(torch.allclose(got, direct, **TILE_BAR),
+                  f"{name}: tile ({ti}, {tj}) differs from its direct decode by {worst:.3g}")
+    log(f"  {name}: {tiled.shape[1] // t}x{tiled.shape[2] // t} tiles, each within "
+        f"{worst:.3g} of its direct decode (rtol 4e-4, atol 1e-4)")
+    return worst
+
+
+@torch.inference_mode()
+def check_deeplab_stems(model, raw, device) -> tuple:
+    """DeepLab's factorized stem (no [L1, L2, 2C] tensor) against the
+    materialized one, on one complex's encoded chains, at the bar of the
+    JAX package's tests/test_stem.py, its atol plus four times the
+    materialized path's rounding spread over the decoder's weights
+    (:func:`rounding_spread`): the stems are the same algebra, but at the
+    flagship width each float32 stem carries ~1e-4 of rounding through the
+    decoder's ~45 instance norms. Returns (max |diff|, spread)."""
+    model.eval()
+    f1, f2, m1, m2 = _encoded(model, raw, device)
+    pm = m1[:, :, None] & m2[:, None, :]
+    fact = model.decoder(PairFactors(f1, f2, m1, m2), pm)
+    mat = model.decoder(interaction_tensor(f1, f2), pm)
+    spread = rounding_spread(model.decoder, lambda: model.decoder(
+        interaction_tensor(f1, f2), pm).cpu().numpy(), mat.cpu().numpy())
+    diff = (fact - mat).abs().max().item()
+    check(torch.allclose(fact, mat, rtol=STEM_BAR["rtol"], atol=STEM_BAR["atol"] + 4 * spread),
+          f"DeepLab factorized vs materialized stem: logits differ by {diff:.3g} (rtol 1e-3, "
+          f"atol 1e-4 + 4 x spread {spread:.3g})")
+    log(f"  DeepLab stems: factorized vs materialized max |diff| {diff:.3g} (rtol 1e-3, atol "
+        f"1e-4 + 4 x spread; spread {spread:.3g})")
+    return diff, spread
+
+
+def run_config_train(name, flags, sizes, seed, device, smi, runs) -> dict:
+    """``cli.train`` for one epoch on ``sizes`` with ``flags``: exact launch
+    counts, peak memory, finite losses; then a train step of the largest
+    complex timed on its own (median of ``runs``)."""
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as root:
+        write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
+                               geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+        args = train_cli.parse_args(["--dips_root", root, "--num_epochs", "1", "--seed",
+                                     str(seed), "--log_every", "0", "--ckpt_dir",
+                                     os.path.join(root, "ckpt"), *flags])
+        torch.cuda.reset_peak_memory_stats()
+        (history, test), counts = _counted(lambda: train_cli.run(args))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (epoch,) = history
+        steps = int(epoch["train_steps"])
+        evals = len(DIPSDataset(root, "val")) + len(DIPSDataset(root, "test"))
+        check(steps == len(sizes), f"train {name}: {steps} steps, expected {len(sizes)}")
+        _expect_launches(f"train {name}", counts, steps + evals, steps)
+        check(epoch["train_skipped_steps"] == 0, f"train {name}: the guard skipped a step")
+        for key, value in (("train_loss", epoch["train_loss"]), ("val_ce", epoch["val_ce"]),
+                           ("test_ce", test["test_ce"])):
+            check(math.isfinite(value), f"train {name}: {key} = {value}")
+        batch = max(BucketedLoader(DIPSDataset(root, "train")),
+                    key=lambda b: b.contact_map.numel())
+    model = load_model(model_config_from_args(args), device, seed=seed)
+    t = time_train_step(create_train_state(model, seed=seed), batch.to(device), runs=runs)
+    b1, b2 = batch.contact_map.shape[1:]
+    log(f"  cli.train {name} 1 epoch: {steps} train steps, launches K1 {counts[0]} K2 "
+        f"{counts[1]}, CSR builds {counts[2]}, peak {peak:.3f} GiB, train_loss "
+        f"{epoch['train_loss']:.4f}, val_ce {epoch['val_ce']:.4f}; train step {b1}/{b2}: "
+        f"{t['train_step_ms']:.3f} ms (median of {runs}; forward+loss {t['forward_ms']:.3f}, "
+        f"backward {t['backward_ms']:.3f}, optimizer {t['optimizer_ms']:.3f}), peak "
+        f"{t['max_memory_allocated_gb']:.3f} GiB; [{smi}]")
+    return {"launches": counts, "train_steps": steps, "epoch_peak_gib": peak,
+            "buckets": (int(b1), int(b2)), **t}
+
+
+# Timing runs (medians) per path: maps of one tile, tiled maps, the DeepLab
+# train step, the tiled train step.
+CONFIG_RUNS = {"predict": 20, "predict_tiled": 5, "train": 5, "train_tiled": 3}
+
+
+def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS) -> dict:
+    """Phase 7 on the flagship-width ``cfg``. Returns {path: result}."""
+    results = {}
+    for name, (vcfg, which) in config_variants(cfg).items():
+        chosen = {"smoke": raws, "one": raws[:1], "tiled": [tiled_raw]}[which]
+        results[f"predict_{name}"] = run_config_predict(
+            name, vcfg, chosen, seed, device, smi,
+            runs["predict_tiled" if which == "tiled" else "predict"])
+        if name in ("tiled", "tiled_deeplab", "deeplab"):
+            model = load_model(vcfg, device, seed=seed)
+            if name == "deeplab":
+                results["deeplab_stems"] = check_deeplab_stems(model, raws[0], device)
+            else:
+                results[f"{name}_tiles_max_diff"] = check_tiles_against_direct(
+                    name, model, tiled_raw, device)
+            del model
+        torch.cuda.empty_cache()
+    results["train_deeplab"] = run_config_train(
+        "deeplab", ["--interact_module_type", "deeplab"], COMPLEXES, seed, device, smi,
+        runs["train"])
+    torch.cuda.empty_cache()
+    results["train_tiled"] = run_config_train(
+        "tiled", ["--tile_pair_map"], TILED_TRAIN, seed, device, smi, runs["train_tiled"])
+    torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -927,7 +1174,7 @@ def main(argv=None) -> int:
 
     build_kernels()
     rng = np.random.default_rng(args.seed)
-    flagship, flagship_bwd, fwd_errs, bwd_err = kernel_parity(rng)
+    flagship, flagship_bwd, fwd_errs, bwd_err, n768_errs = kernel_parity(rng)
 
     log("== phase 4: predict path (predict_complex, flagship width, seeded weights)")
     cfg = ModelConfig()
@@ -1005,13 +1252,36 @@ def main(argv=None) -> int:
     log(f"  train step {n1}x{n2} under torch.profiler: wall {prof['wall_ms']:.3f} ms, "
         f"{prof['kernels']} device kernels, device {busy}")
 
+    log("== phase 7: model configurations (flagship encoder width, seeded weights)")
+    del state, model
+    torch.cuda.empty_cache()
+    configs = run_model_configs(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
+                                device, smi)
+    config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
+
     at = ktimes["by_n"][256]
     common = {"route": "cuda", "library_ms": None, "parity": "pass",
               "csr_build_ms": at["csr_ms"],
               "csr_build_ms_by_n": {n: t["csr_ms"] for n, t in ktimes["by_n"].items()},
               "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2],
                                      **{path: lifecycle["launches"][path][2]
-                                        for path in LIFECYCLE_PATHS}}}
+                                        for path in LIFECYCLE_PATHS},
+                                     **{path: configs[path]["launches"][2]
+                                        for path in config_paths}},
+              "model_configs": {
+                  "predict_max_logit_diff_vs_plain": {
+                      path: configs[path]["max_logit_diff"] for path in config_paths
+                      if path.startswith("predict_")},
+                  "predict_max_rounding_spread": {
+                      path: configs[path]["max_spread"] for path in config_paths
+                      if path.startswith("predict_")},
+                  "tiles_vs_direct_max_diff": {k: v for k, v in configs.items()
+                                               if k.endswith("_tiles_max_diff")},
+                  "deeplab_stems_max_diff_and_spread": configs["deeplab_stems"],
+                  "peak_gib": {path: (max(c["peak_gib"] for c in configs[path]["complexes"])
+                                      if path.startswith("predict_")
+                                      else configs[path]["max_memory_allocated_gb"])
+                               for path in config_paths}}}
     kernels = [{
         "name": "edge_attention_fwd",
         "source": "deepinteract_tpu_torch/csrc/edge_attention_fwd.cu",
@@ -1019,8 +1289,9 @@ def main(argv=None) -> int:
         "launches": train_counts[0],
         "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0],
                              **{path: lifecycle["launches"][path][0]
-                                for path in LIFECYCLE_PATHS}},
-        "max_abs_err": max(fwd_errs.values()),
+                                for path in LIFECYCLE_PATHS},
+                             **{path: configs[path]["launches"][0] for path in config_paths}},
+        "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
         "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
         "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
         "ms_by_n": {n: t["k1_ms"] for n, t in ktimes["by_n"].items()},
@@ -1033,8 +1304,9 @@ def main(argv=None) -> int:
         "launches": train_counts[1],
         "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1],
                              **{path: lifecycle["launches"][path][1]
-                                for path in LIFECYCLE_PATHS}},
-        "max_abs_err": bwd_err,
+                                for path in LIFECYCLE_PATHS},
+                             **{path: configs[path]["launches"][1] for path in config_paths}},
+        "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
         "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],
         "ms_by_n": {n: t["k2_ms"] for n, t in ktimes["by_n"].items()},

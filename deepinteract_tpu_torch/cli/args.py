@@ -7,19 +7,32 @@ import argparse
 
 from deepinteract_tpu_torch.models.decoder import DecoderConfig
 from deepinteract_tpu_torch.models.geometric_transformer import GTConfig
-from deepinteract_tpu_torch.models.model import ModelConfig
+from deepinteract_tpu_torch.models.model import (GNN_LAYER_TYPES, INTERACT_MODULE_TYPES,
+                                                 ModelConfig)
+from deepinteract_tpu_torch.models.vision import DeepLabConfig
 from deepinteract_tpu_torch.training.loop import LoopConfig
 from deepinteract_tpu_torch.training.optim import OptimConfig
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("model")
+    g.add_argument("--gnn_layer_type", choices=GNN_LAYER_TYPES, default="geotran",
+                   help="chain encoder: the Geometric Transformer or a plain GCN")
     g.add_argument("--num_gnn_layers", type=int, default=2)
     g.add_argument("--num_gnn_hidden_channels", type=int, default=128)
     g.add_argument("--num_gnn_attention_heads", type=int, default=4)
+    g.add_argument("--interact_module_type", choices=INTERACT_MODULE_TYPES, default="dilated",
+                   help="dilated = SE-ResNet decoder (the reference's default); "
+                        "deeplab = the DeepLabV3+ alternative")
     g.add_argument("--num_interact_layers", type=int, default=14,
                    help="decoder ResNet chunks")
     g.add_argument("--num_interact_hidden_channels", type=int, default=128)
+    g.add_argument("--use_interact_attention", action="store_true",
+                   help="regional attention after each dilated-decoder stage")
+    g.add_argument("--deeplab_output_stride", type=int, choices=(8, 16), default=16,
+                   help="DeepLabV3+ encoder output stride")
+    g.add_argument("--deeplab_encoder", choices=("resnet18", "resnet34", "resnet50"),
+                   default="resnet34", help="DeepLabV3+ encoder backbone")
     g.add_argument("--compute_dtype", choices=("float32", "bfloat16"), default=None,
                    help="activation/matmul dtype of the encoder and decoder; "
                         "params, norm statistics, softmax accumulators and "
@@ -32,7 +45,12 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--attention_mode", choices=("scatter", "gather"), default="scatter",
                    help="scatter = reference-exact edge softmax; gather = "
                         "out-edge approximation")
+    g.add_argument("--disable_geometric_mode", action="store_true",
+                   help="plain edge features in place of the GT's geometric modules")
     g.add_argument("--norm_type", choices=("batch", "layer"), default="batch")
+    g.add_argument("--tile_pair_map", action="store_true",
+                   help="decode the pair map in 256x256 tiles once a padded chain exceeds "
+                        "one tile (each tile is its own map)")
     g.add_argument("--dropout_rate", type=float, default=0.2)
 
 
@@ -128,11 +146,20 @@ def model_config_from_args(args: argparse.Namespace) -> ModelConfig:
         num_heads=args.num_gnn_attention_heads,
         dropout_rate=args.dropout_rate,
         attention_mode=args.attention_mode,
+        disable_geometric_mode=args.disable_geometric_mode,
         norm_type=args.norm_type,
     )
     decoder = DecoderConfig(num_chunks=args.num_interact_layers,
-                            num_channels=args.num_interact_hidden_channels)
-    return ModelConfig(gnn=gnn, decoder=decoder,
+                            num_channels=args.num_interact_hidden_channels,
+                            use_attention=args.use_interact_attention,
+                            dropout_rate=args.dropout_rate)
+    deeplab = DeepLabConfig(dropout_rate=args.dropout_rate,
+                            output_stride=args.deeplab_output_stride,
+                            encoder_name=args.deeplab_encoder)
+    return ModelConfig(gnn=gnn, decoder=decoder, deeplab=deeplab,
+                       gnn_layer_type=args.gnn_layer_type,
+                       interact_module_type=args.interact_module_type,
+                       tile_pair_map=args.tile_pair_map,
                        interaction_stem=args.interaction_stem or "factorized",
                        compute_dtype=args.compute_dtype or "float32")
 

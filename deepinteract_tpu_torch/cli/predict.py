@@ -4,7 +4,8 @@ Port of ``deepinteract_tpu/cli/predict.py`` for ``--input_npz``. Writes
 
 * ``contact_prob_map.npy``      — [n1, n2] positive-class softmax map
 * ``graph1_node_feats.npy`` / ``graph2_node_feats.npy``
-* ``graph1_edge_feats.npy`` / ``graph2_edge_feats.npy``
+* ``graph1_edge_feats.npy`` / ``graph2_edge_feats.npy`` (not with the GCN
+  encoder, which learns no edge features)
 
 into ``--output_dir``. ``--weights`` takes a flat-path ``.npz`` of JAX
 variables (``weights.save_npz``); ``--ckpt_name`` a checkpoint directory
@@ -64,8 +65,9 @@ def predict_complex(raw: Dict, model: DeepInteract, device) -> Dict[str, np.ndar
     """Predict one raw complex (``data.io.load_complex_npz``'s dict).
 
     Returns float32 numpy arrays: ``contact_prob_map`` [n1, n2], ``logits``
-    [n1, n2, 2], and the four representations, depadded (node feats
-    [n, C], edge feats [n, K, C]). The model is put in eval mode."""
+    [n1, n2, 2], and the representations the encoder gives, depadded (node
+    feats [n, C], edge feats [n, K, C]; no edge feats from the GCN). The
+    model is put in eval mode."""
     device = resolve_device(device)
     model.eval()
     set_backend_precision(model.cfg.gnn.compute_dtype)
@@ -77,8 +79,9 @@ def predict_complex(raw: Dict, model: DeepInteract, device) -> Dict[str, np.ndar
     out = {"logits": logits.cpu().numpy(),
            "contact_prob_map": torch.softmax(logits, dim=-1)[..., 1].cpu().numpy()}
     for name in REPRESENTATIONS:
-        n = n1 if name.startswith("graph1") else n2
-        out[name] = reps[name][0, :n].float().cpu().numpy()
+        if reps[name] is not None:
+            n = n1 if name.startswith("graph1") else n2
+            out[name] = reps[name][0, :n].float().cpu().numpy()
     return out
 
 
@@ -105,6 +108,8 @@ def main(argv=None) -> int:
     os.makedirs(args.output_dir, exist_ok=True)
     saved = []
     for name in ("contact_prob_map",) + REPRESENTATIONS:
+        if name not in out:
+            continue
         path = os.path.join(args.output_dir, f"{name}.npy")
         np.save(path, out[name])
         saved.append(path)

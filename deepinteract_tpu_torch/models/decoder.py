@@ -10,8 +10,9 @@ scanned parameter layout is still accepted by ``weights.py``).
 
 Convolutions run NCHW on cuDNN; the public boundary keeps the JAX layout
 (NHWC logits ``[B, L1, L2, num_classes]``). The positive-class bias of the
-final conv starts at -7, so positives start at p ~= 0.001. The optional
-``RegionalAttention`` (off by default) is not ported yet.
+final conv starts at -7, so positives start at p ~= 0.001. With
+``use_attention`` a :class:`RegionalAttention` follows each ResNet stage
+(``mha2d_1``, ``mha2d_2``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepinteract_tpu_torch.models import policy
-from deepinteract_tpu_torch.models.layers import Conv2d, Dense
+from deepinteract_tpu_torch.models.layers import Conv2d, Dense, Dropout
 from deepinteract_tpu_torch.models.policy import OUTPUT_DTYPE, STATS_DTYPE
 from deepinteract_tpu_torch.models.stem import PairStem1x1
 
@@ -40,6 +41,10 @@ class DecoderConfig:
     num_channels: int = 128
     num_classes: int = 2
     dilation_cycle: Sequence[int] = (1, 2, 4, 8)
+    use_attention: bool = False
+    num_attention_heads: int = 4
+    dropout_rate: float = 0.2  # on the regional attention weights
+    region_size: int = 3
     compute_dtype: str = "float32"
 
     def __post_init__(self):
@@ -153,6 +158,45 @@ class DilatedResNet(nn.Module):
         return x
 
 
+class RegionalAttention(nn.Module):
+    """Multi-head attention over a region_size x region_size window around
+    each pixel (the reference's MultiHeadRegionalAttention), the window
+    built from shifted pads: q, k, v are bias-free 1x1 convs, a head's
+    score sums its d_k / heads channels of q * k, the softmax over the s^2
+    window runs in float32 with scale 1/sqrt(d_k), dropout hits the
+    attention weights, and input and output are masked (window slots in
+    the pad then act like the reference's zero boundary)."""
+
+    def __init__(self, channels: int, d_k: int = 16, num_heads: int = 4,
+                 region_size: int = 3, dropout_rate: float = 0.1):
+        super().__init__()
+        self.d_k, self.num_heads, self.region_size = d_k, num_heads, region_size
+        self.q_layer = Conv2d(channels, d_k, 1, bias=False)
+        self.k_layer = Conv2d(channels, d_k, 1, bias=False)
+        self.v_layer = Conv2d(channels, channels, 1, bias=False)
+        self.dropout = Dropout(dropout_rate)
+
+    def _patches(self, t):
+        """[B, C, H, W] -> [B, C, s*s, H, W], window offsets row-major."""
+        s, pad = self.region_size, self.region_size // 2
+        h, w = t.shape[2:]
+        tp = F.pad(t, (pad, pad, pad, pad))
+        return torch.stack([tp[:, :, dy:dy + h, dx:dx + w]
+                            for dy in range(s) for dx in range(s)], dim=2)
+
+    def forward(self, x, mask):
+        b, c, h, w = x.shape
+        n, s2 = self.num_heads, self.region_size ** 2
+        x = x * mask.to(x.dtype)
+        qk = self._patches(self.q_layer(x)) * self._patches(self.k_layer(x))
+        qk = qk.reshape(b, n, self.d_k // n, s2, h, w).sum(2)  # [B, heads, s2, H, W]
+        att = torch.softmax(qk.to(STATS_DTYPE) / self.d_k ** 0.5, dim=2).to(qk.dtype)
+        att = self.dropout(att)
+        v = self._patches(self.v_layer(x)).reshape(b, n, c // n, s2, h, w)
+        out = (att[:, :, None] * v).sum(3).reshape(b, c, h, w)
+        return out * mask.to(out.dtype)
+
+
 class InteractionDecoder(nn.Module):
     """Full decoder head: entry 1x1 conv + inorm -> base dilated ResNet
     (inorm) -> phase-2 ResNet (+extra blocks) -> 1x1 conv to classes.
@@ -171,6 +215,11 @@ class InteractionDecoder(nn.Module):
         self.base_resnet = DilatedResNet(ch, cfg.num_chunks, cfg.dilation_cycle, use_inorm=True)
         self.phase2_resnet = DilatedResNet(ch, 1, cfg.dilation_cycle, use_inorm=False,
                                            extra_blocks=True)
+        if cfg.use_attention:
+            for name in ("mha2d_1", "mha2d_2"):
+                self.add_module(name, RegionalAttention(
+                    ch, num_heads=cfg.num_attention_heads, region_size=cfg.region_size,
+                    dropout_rate=cfg.dropout_rate))
         self.phase2_conv = nn.Conv2d(ch, cfg.num_classes, 1)
 
     def forward(self, pair_input, mask):
@@ -178,7 +227,11 @@ class InteractionDecoder(nn.Module):
         x = self.conv2d_1(pair_input).to(self.cfg.dtype)
         x = F.elu(self.inorm_1(x, m))
         x = F.elu(self.base_resnet(x, m))
+        if self.cfg.use_attention:
+            x = F.elu(self.mha2d_1(x, m))
         x = F.elu(self.phase2_resnet(x, m))
+        if self.cfg.use_attention:
+            x = F.elu(self.mha2d_2(x, m))
         # Logits in float32 whatever the activation dtype.
         logits = self.phase2_conv(x.to(OUTPUT_DTYPE)) * m.to(OUTPUT_DTYPE)
         return logits.permute(0, 2, 3, 1)

@@ -1,9 +1,12 @@
-"""The full siamese network: Geometric Transformer encoder x2 -> interaction
-stem -> dilated SE-ResNet decoder -> per-pair contact logits.
+"""The full siamese network: chain encoder x2 -> interaction stem -> 2D
+decoder -> per-pair contact logits.
 
-Port of ``ModelConfig`` and ``DeepInteract`` from
-``deepinteract_tpu/models/model.py`` for the geotran encoder and the
-dilated decoder. Both chains share one set of encoder weights.
+Port of ``ModelConfig``, ``GCNStack`` and ``DeepInteract`` from
+``deepinteract_tpu/models/model.py``. The encoder is the Geometric
+Transformer ('geotran') or a plain GCN ('gcn'); the decoder the dilated
+SE-ResNet ('dilated') or DeepLabV3+ ('deeplab'), decoded whole or, with
+``tile_pair_map``, in tiles (``models/tiled.py``). Both chains share one
+set of encoder weights.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
 from torch import nn
 
 from deepinteract_tpu_torch import constants as C
@@ -21,6 +25,12 @@ from deepinteract_tpu_torch.models.interaction import interaction_tensor, pair_m
 from deepinteract_tpu_torch.models.layers import GODense
 from deepinteract_tpu_torch.models.policy import validate_compute_dtype
 from deepinteract_tpu_torch.models.stem import PairFactors, validate_stem
+from deepinteract_tpu_torch.models.tiled import tiled_decode
+from deepinteract_tpu_torch.models.vision import DeepLabConfig, DeepLabDecoder
+from deepinteract_tpu_torch.ops.cuda_attention import in_edge_csr
+
+GNN_LAYER_TYPES = ("geotran", "gcn")
+INTERACT_MODULE_TYPES = ("dilated", "deeplab")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,28 +40,91 @@ class ModelConfig:
     num_node_input_feats: int = C.NUM_NODE_FEATS
     gnn: GTConfig = dataclasses.field(default_factory=GTConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
+    gnn_layer_type: str = "geotran"  # 'geotran' | 'gcn'
+    interact_module_type: str = "dilated"  # 'dilated' | 'deeplab'
     num_classes: int = C.NUM_CLASSES
+    # Decode the pair map in tile_size x tile_size blocks when a padded
+    # chain exceeds one tile (models/tiled.py).
+    tile_pair_map: bool = False
+    tile_size: int = C.PAIR_MAP_TILE
+    deeplab: DeepLabConfig = dataclasses.field(default_factory=DeepLabConfig)
     # 'factorized' computes the decoder's first layer from per-chain
     # features without the [B, L1, L2, 2C] tensor; 'materialized' builds
     # it. Both share one parameter set.
     interaction_stem: str = "factorized"
     # None keeps the sub-configs' own dtypes; 'float32' / 'bfloat16' is
-    # pushed into the encoder and the decoder.
+    # pushed into the encoder and both decoders.
     compute_dtype: Optional[str] = None
 
     def __post_init__(self):
         validate_stem(self.interaction_stem)
+        if self.gnn_layer_type not in GNN_LAYER_TYPES:
+            raise ValueError(f"unknown gnn_layer_type {self.gnn_layer_type!r}; expected one "
+                             f"of {GNN_LAYER_TYPES}")
+        if self.interact_module_type not in INTERACT_MODULE_TYPES:
+            raise ValueError(f"unknown interact_module_type {self.interact_module_type!r}; "
+                             f"expected one of {INTERACT_MODULE_TYPES}")
         if self.compute_dtype is not None:
             validate_compute_dtype(self.compute_dtype)
-            object.__setattr__(self, "gnn", dataclasses.replace(
-                self.gnn, compute_dtype=self.compute_dtype))
-            object.__setattr__(self, "decoder", dataclasses.replace(
-                self.decoder, compute_dtype=self.compute_dtype))
-        if (self.decoder.in_channels != 2 * self.gnn.hidden
-                or self.decoder.num_classes != self.num_classes):
-            object.__setattr__(self, "decoder", dataclasses.replace(
-                self.decoder, in_channels=2 * self.gnn.hidden,
-                num_classes=self.num_classes))
+            for name in ("gnn", "decoder", "deeplab"):
+                object.__setattr__(self, name, dataclasses.replace(
+                    getattr(self, name), compute_dtype=self.compute_dtype))
+        # The decoders' input width and classes follow the encoder.
+        for name in ("decoder", "deeplab"):
+            sub = getattr(self, name)
+            if sub.in_channels != 2 * self.gnn.hidden or sub.num_classes != self.num_classes:
+                object.__setattr__(self, name, dataclasses.replace(
+                    sub, in_channels=2 * self.gnn.hidden, num_classes=self.num_classes))
+
+
+class GCNStack(nn.Module):
+    """The plain graph-convolution encoder (``--gnn_layer_type gcn``): per
+    layer a bias-free dense map, DGL ``GraphConv(norm='both')`` message
+    passing weighted by the min-max-normalized squared distance (edge
+    feature column 1), the bias, and the node mask; no activation between
+    layers. Both norms are rsqrt(max(degree, 1e-9)) over unweighted valid
+    edge counts (out-degree at the source, in-degree at the destination).
+
+    Messages are summed into their destinations by a gather over the
+    in-edge CSR (``ops.cuda_attention.in_edge_csr``, one build per
+    forward) and a sum over each destination's slots in edge-id order: a
+    fixed order, deterministic on the card, unlike ``index_add_``.
+    Returns ``(node_feats, None)``: the GCN learns no edge features."""
+
+    def __init__(self, cfg: GTConfig):
+        super().__init__()
+        self.cfg = cfg
+        for i in range(cfg.num_layers):
+            self.add_module(f"gcn_{i}", GODense(cfg.hidden, cfg.hidden, bias=False))
+            self.register_parameter(f"gcn_bias_{i}", nn.Parameter(torch.zeros(cfg.hidden)))
+
+    def forward(self, graph: ProteinGraph, node_feats: torch.Tensor):
+        b, n, kk = graph.nbr_idx.shape
+        e_mask = graph.edge_mask().to(node_feats.dtype)                    # [B, N, K]
+        w = (graph.edge_feats[..., C.EDGE_WEIGHT].to(node_feats.dtype) * e_mask).reshape(b, n * kk)
+        in_ptr, in_eid = in_edge_csr(graph.nbr_idx)
+        deg = (in_ptr[:, 1:] - in_ptr[:, :-1]).long()                      # [B, N]
+        slots = torch.arange(int(deg.max()), device=deg.device)
+        valid = slots < deg[..., None]                                     # [B, N, S]
+        pos = (in_ptr[:, :-1, None].long() + slots).clamp(max=n * kk - 1)
+        eid = torch.gather(in_eid.long(), 1, pos.reshape(b, -1)).reshape(pos.shape)
+        eid = torch.where(valid, eid, 0)
+        src = eid // kk
+
+        def into_dst(edge_vals):  # [B, N*K] per edge -> [B, N, S], 0 off the slots
+            return torch.gather(edge_vals, 1, eid.reshape(b, -1)).reshape(eid.shape) * valid
+
+        norm_src = torch.rsqrt(torch.clamp(e_mask.sum(-1), min=1e-9))     # out-degree
+        norm_dst = torch.rsqrt(torch.clamp(into_dst(e_mask.reshape(b, -1)).sum(-1), min=1e-9))
+        w_in = into_dst(w)[..., None]                                      # [B, N, S, 1]
+        batch = torch.arange(b, device=src.device)[:, None, None]
+        node_mask = graph.node_mask[..., None].to(node_feats.dtype)
+        h = node_feats
+        for i in range(self.cfg.num_layers):
+            hn = getattr(self, f"gcn_{i}")(h) * norm_src[..., None]
+            h = (hn[batch, src] * w_in).sum(2) * norm_dst[..., None]
+            h = (h + getattr(self, f"gcn_bias_{i}").to(h.dtype)) * node_mask
+        return h, None
 
 
 class DeepInteract(nn.Module):
@@ -71,12 +144,14 @@ class DeepInteract(nn.Module):
             self.node_in_embedding = GODense(cfg.num_node_input_feats, hidden, bias=False)
         else:
             self.node_in_embedding = None
-        self.gnn = GeometricTransformer(cfg.gnn)
-        self.decoder = InteractionDecoder(cfg.decoder)
+        self.gnn = (GCNStack(cfg.gnn) if cfg.gnn_layer_type == "gcn"
+                    else GeometricTransformer(cfg.gnn))
+        self.decoder = (DeepLabDecoder(cfg.deeplab) if cfg.interact_module_type == "deeplab"
+                        else InteractionDecoder(cfg.decoder))
 
     def encode(self, graph: ProteinGraph):
         """Shared-weight chain encoder (siamese leg) -> (node_feats [B,N,C],
-        edge_feats [B,N,K,C])."""
+        edge_feats [B,N,K,C], or None from the GCN)."""
         x = graph.node_feats.to(self.cfg.gnn.dtype)
         if self.node_in_embedding is not None:
             x = self.node_in_embedding(x)
@@ -84,13 +159,18 @@ class DeepInteract(nn.Module):
 
     def decode(self, feats1, feats2, mask1, mask2):
         """Interaction stem + decoder over encoded chain features
-        ``[B, L, C]`` and node masks ``[B, L]``. ``forward`` is exactly
-        ``decode(encode(g1), encode(g2))``."""
-        dt = self.cfg.gnn.dtype
+        ``[B, L, C]`` and node masks ``[B, L]``; tiled when
+        ``tile_pair_map`` is set and a chain exceeds ``tile_size``.
+        ``forward`` is exactly ``decode(encode(g1), encode(g2))``."""
+        cfg = self.cfg
+        dt = cfg.gnn.dtype
         feats1, feats2 = feats1.to(dt), feats2.to(dt)
+        if cfg.tile_pair_map and max(feats1.shape[1], feats2.shape[1]) > cfg.tile_size:
+            return tiled_decode(self.decoder, feats1, feats2, mask1, mask2, cfg.tile_size,
+                                cfg.interaction_stem)
         pm = pair_mask(mask1, mask2)
-        if self.cfg.interaction_stem == "factorized":
-            return self.decoder(PairFactors(feats1, feats2), pm)
+        if cfg.interaction_stem == "factorized":
+            return self.decoder(PairFactors(feats1, feats2, mask1, mask2), pm)
         return self.decoder(interaction_tensor(feats1, feats2), pm)
 
     def forward(self, graph1: ProteinGraph, graph2: ProteinGraph,

@@ -12,7 +12,9 @@ path maps onto a torch module path; flax's automatic wrapper names
   * Embed ``embedding`` -> ``weight``; norm ``scale`` -> ``weight``;
   * BatchNorm ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
   * the decoder's entry conv ``kernel [1, 1, 2C, F]`` -> the factorized
-    stem's two per-chain halves.
+    stem's two per-chain halves;
+  * a parameter declared directly on a module (the GCN's ``gcn_bias_{i}``)
+    -> the port module's parameter of that name.
 The scanned decoder layout (``base_resnet/chunks/block_d{d}/...`` with a
 leading ``[num_chunks]`` axis) is unstacked to ``block_{i}_{d}``; the
 unrolled layout is taken as it is. A key that maps nowhere, or a port
@@ -29,9 +31,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from deepinteract_tpu_torch.models.decoder import POSITIVE_CLASS_BIAS, InstanceNorm
+from deepinteract_tpu_torch.models.decoder import (POSITIVE_CLASS_BIAS, InstanceNorm,
+                                                   InteractionDecoder)
 from deepinteract_tpu_torch.models.layers import GODense, LayerNorm, MaskedBatchNorm
 from deepinteract_tpu_torch.models.stem import PairStem1x1
+from deepinteract_tpu_torch.models.vision import DeepLabDecoder
 
 _NORMS = (MaskedBatchNorm, LayerNorm, InstanceNorm)
 _LEAVES = (nn.Linear, nn.Conv2d, nn.Embedding, PairStem1x1) + _NORMS
@@ -73,11 +77,17 @@ def unstack_chunks(tree: Mapping) -> Dict:
     return out
 
 
+def _own_param(mod: nn.Module, leaf: str) -> bool:
+    """A flax leaf declared on a module itself (``self.param`` beside its
+    submodules), which the port holds as a parameter of the same name."""
+    return not isinstance(mod, _LEAVES) and leaf in mod._parameters
+
+
 def _resolve(model: nn.Module, path: Tuple[str, ...]) -> Tuple[nn.Module, str]:
-    """Walk a flax path down the port's modules -> (leaf module, its dotted
-    state-dict prefix)."""
+    """Walk a flax leaf's path down the port's modules -> (the module that
+    holds the leaf, its dotted state-dict prefix)."""
     mod, names = model, []
-    for seg in path:
+    for seg in path[:-1]:
         child_name = getattr(mod, "flax_names", {}).get(seg, seg)
         child = mod._modules.get(child_name)
         if child is not None:
@@ -87,13 +97,15 @@ def _resolve(model: nn.Module, path: Tuple[str, ...]) -> Tuple[nn.Module, str]:
             raise KeyError(f"flax path {'/'.join(path)} has no counterpart in "
                            f"the port (no submodule {seg!r} under "
                            f"{'.'.join(names) or 'the model'})")
-    if not isinstance(mod, _LEAVES):
+    if not (isinstance(mod, _LEAVES) or _own_param(mod, path[-1])):
         raise KeyError(f"flax path {'/'.join(path)} does not end at a layer")
     return mod, ".".join(names)
 
 
 def _convert_leaf(mod: nn.Module, leaf: str, value: np.ndarray) -> Dict[str, np.ndarray]:
     """One flax leaf -> {torch state-dict name (relative to mod): array}."""
+    if _own_param(mod, leaf):
+        return {leaf: value}
     if isinstance(mod, PairStem1x1):
         if leaf == "bias":
             return {"chain2.bias": value}
@@ -121,7 +133,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> None:
     for collection in ("params", "batch_stats"):
         tree = unstack_chunks(variables.get(collection, {}))
         for path, value in _iter_leaves(tree):
-            mod, prefix = _resolve(model, path[:-1])
+            mod, prefix = _resolve(model, path)
             for name, array in _convert_leaf(mod, path[-1], np.asarray(value)).items():
                 key = f"{prefix}.{name}" if prefix else name
                 if key not in state:
@@ -183,7 +195,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
     """Deterministic init from ``seed`` through an explicit CPU
     ``torch.Generator``: glorot orthogonal for ``GODense``, lecun normal
     for other dense and conv layers, U(+-sqrt 3) node embeddings, unit
-    norms, zero biases, and -7 on the decoder's positive-class logit bias.
+    norms, zero biases, and -7 on the decoder's positive-class logit bias
+    (the DeepLab head's with two classes).
     It follows the reference's init scheme, not its random numbers."""
     gen = torch.Generator().manual_seed(seed)
     halves = set()
@@ -212,5 +225,7 @@ def init_weights(model: nn.Module, seed: int) -> None:
             mod.weight.fill_(1.0)
             mod.bias.zero_()
     decoder = getattr(model, "decoder", None)
-    if decoder is not None:
+    if isinstance(decoder, InteractionDecoder):
         decoder.phase2_conv.bias[1] = POSITIVE_CLASS_BIAS
+    elif isinstance(decoder, DeepLabDecoder) and decoder.cfg.num_classes == 2:
+        decoder.head.bias[-1] = POSITIVE_CLASS_BIAS

@@ -156,11 +156,12 @@ def test_bfloat16_policy_runs_on_cpu(carried):
     assert reps["graph1_node_feats"].dtype == torch.bfloat16
 
 
-# The training lifecycle's modules, named so that the check below fails if
-# one of them stops being importable on its own.
+# The training lifecycle's and the model configurations' modules, named so
+# that the check below fails if one of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
-    "training.checkpoint", "training.lr_finder", "cli.test"))
+    "training.checkpoint", "training.lr_finder", "cli.test",
+    "models.vision", "models.tiled", "models.stem"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

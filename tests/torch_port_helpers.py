@@ -50,8 +50,8 @@ def jax_cfg(attention_impl: str = "jnp", norm_type: str = "batch",
         gnn=JaxGTConfig(hidden=HIDDEN, num_heads=HEADS, dropout_rate=0.0,
                         node_count_limit=limit, attention_impl=attention_impl,
                         norm_type=norm_type, attention_mode=attention_mode),
-        decoder=JaxDecoderConfig(num_chunks=CHUNKS, num_channels=HIDDEN,
-                                 **{"depad_stats": False, **decoder}))
+        decoder=JaxDecoderConfig(**{"num_chunks": CHUNKS, "num_channels": HIDDEN,
+                                    "depad_stats": False, **decoder}))
 
 
 def port_cfg(attention_impl: str = "auto", norm_type: str = "batch",
@@ -63,11 +63,11 @@ def port_cfg(attention_impl: str = "auto", norm_type: str = "batch",
         decoder=DecoderConfig(num_chunks=CHUNKS, num_channels=HIDDEN), **kw)
 
 
-def complexes(seed: int = 3, pad: int = PAD):
+def complexes(seed: int = 3, pad: int = PAD, n1: int = N1, n2: int = N2):
     """(JAX batch, port batch) of one synthetic complex from one seed."""
-    jcx = jax_stack([jax_random_complex(N1, N2, np.random.default_rng(seed),
+    jcx = jax_stack([jax_random_complex(n1, n2, np.random.default_rng(seed),
                                         n_pad1=pad, n_pad2=pad, knn=KNN)])
-    cx = stack_complexes([random_complex(N1, N2, np.random.default_rng(seed),
+    cx = stack_complexes([random_complex(n1, n2, np.random.default_rng(seed),
                                          n_pad1=pad, n_pad2=pad, knn=KNN)])
     return jcx, cx
 
