@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero:
      a node without in-edges, rows wider than a warp, an odd head count),
      outputs pre-filled with NaN, and two calls bitwise equal; the
      edge-attention autograd Function (K1 forward, K2 backward) against
-     autograd through the plain forward;
+     autograd through the plain forward; then K1, K2 and the Function at
+     head dims 6, 24, 64, 128, 256, 33 and 4096 and H*D = 1536, in float32
+     and bfloat16 (both head layouts of the kernels);
   4. the predict path: ``cli.predict.predict_complex`` at the flagship
      width (2-layer GT, hidden 128, 4 heads, kNN 20; 14-chunk dilated
      decoder of 128 channels; seeded random weights) on three synthetic
@@ -26,8 +28,9 @@ Phases, in order; any failure exits non-zero:
      own, and one train step of the kernel path against one of the plain
      path from the same weights, batch and dropout seed, with the
      flagship's batch norm and with layer norm;
-  5b. the training lifecycle at the flagship width, under
-     ``torch.use_deterministic_algorithms(True)``: ``cli.train`` for two
+  5b. the training lifecycle at the flagship width, then with the DeepLab
+     decoder on two complexes, under
+     ``torch.use_deterministic_algorithms(True)`` (no op may refuse): ``cli.train`` for two
      epochs with a save after every step, the same preempted through the
      fault plan in the middle of epoch 2 (it must exit 0 with the
      preempted line) and resumed with ``--resume``, checked bitwise against
@@ -56,8 +59,25 @@ Phases, in order; any failure exits non-zero:
      plain attention's; the tiled logits against direct decodes of the
      same tiles; DeepLab's factorized stem against its materialized one;
      one ``cli.train`` epoch with the DeepLab decoder (the three
-     complexes) and with tiled decoding (complexes of two tiles), with
-     exact launch counts, peak memory and a timed train step.
+     complexes), with tiled decoding (complexes of two tiles) and with 2
+     attention heads (head dim 64), with exact launch counts, peak memory
+     and a timed train step; predict with 2 heads;
+  8a. decoder remat: a two-tile train step with ``--remat`` (each policy)
+     and a DeepLab step with remat against the same step without it, under
+     deterministic algorithms (loss 1e-5, gradients 1e-4); the two-tile
+     step timed with and without remat; one ``cli.train`` epoch of the
+     600x450 complex (six 256x256 tiles) with ``--tile_pair_map --remat``
+     per policy, with peak memory and a timed step;
+  8b. the reference-checkpoint importer: the golden fixture's reference
+     state dict as a Lightning ``.ckpt`` through ``cli.import_checkpoint``
+     and the ``cli.predict --ckpt_name`` loader against its reference
+     logits (1e-4); a flagship-width reference ``.ckpt`` imported and
+     predicted (kernel against plain path), ``cli.test`` on the ``.ckpt``
+     itself, and one ``--fine_tune`` step from the imported directory;
+  8c. ``cli.train --supervise`` at the flagship width with a hang injected
+     (``training.hang``): one restart, a ``train_supervise/v1`` record that
+     ``tools/check_cli_contract.py`` accepts, and the final state against
+     an unsupervised run of the same command.
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` JSON line. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -86,7 +106,7 @@ from deepinteract_tpu_torch import constants
 from deepinteract_tpu_torch.cli import predict as predict_cli
 from deepinteract_tpu_torch.cli import test as test_cli
 from deepinteract_tpu_torch.cli import train as train_cli
-from deepinteract_tpu_torch.cli.args import model_config_from_args
+from deepinteract_tpu_torch.cli.args import build_parser, model_config_from_args
 from deepinteract_tpu_torch.cli.predict import load_model, predict_complex
 from deepinteract_tpu_torch.data import features
 from deepinteract_tpu_torch.data.datasets import DIPSDataset
@@ -120,7 +140,12 @@ COUNTERS = (cuda_attention.edge_attention_forward, cuda_attention.edge_attention
 TIMED_N = {64: 50, 128: 100, 192: 180, 256: 200, 512: 450, 768: 600}  # bucket -> real nodes
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== "):  # a phase header: with the seconds since the start
+        msg = f"{msg} [t = {time.perf_counter() - T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -398,10 +423,43 @@ def build_kernels() -> None:
                 log(f"    {line.strip()}")
 
 
+# (heads, head dim) beyond the flagship's D=32, each in float32 and bfloat16:
+# the head layouts of csrc/edge_attention_common.cuh. Warp heads padded to a
+# power of two (D = 6, 24, 96), one head a warp (64, 128, bf16 256); block
+# heads (f32 256, 33, 4096, where a head outgrows 32 vector lanes).
+HEAD_DIM_CASES = ((4, 6), (4, 24), (2, 64), (1, 128), (1, 256), (16, 96), (2, 33), (1, 4096))
+
+
+def head_dim_parity(rng, device="cuda") -> dict:
+    """K1, K2 and the autograd Function against their plain versions at
+    every (H, D) of HEAD_DIM_CASES, float32 (1e-5 / 1e-4) and bfloat16
+    (3e-2), the first with an orphan node. Returns the largest errors
+    {"k1": .., "k2": .., "function": ..} per dtype."""
+    out = {"float32": dict.fromkeys(("k1", "k2", "function"), 0.0)}
+    out["bfloat16"] = dict(out["float32"])
+    for i, (heads, head_dim) in enumerate(HEAD_DIM_CASES):
+        orphan = 3 if i == 0 else None
+        batch = 1 if heads * head_dim > 1024 else 2
+        args = attention_case(rng, batch, 50, 64, 20, heads, head_dim, torch.float32,
+                              orphan=orphan, device=device)
+        for dtype, case, tols in (("float32", args, (1e-5, 1e-4)),
+                                  ("bfloat16", to_bf16(args), (3e-2, 3e-2))):
+            name = f"H={heads} D={head_dim} {dtype} (B={batch} N=64/50)"
+            errs = out[dtype]
+            errs["k1"] = max(errs["k1"], *check_attention(name, case, tols[0],
+                                                          orphan=orphan).values())
+            errs["k2"] = max(errs["k2"], check_backward(name, backward_case(rng, case), tols[1],
+                                                        orphan=orphan))
+            errs["function"] = max(errs["function"], check_autograd(name, case, tols[1]))
+    log(f"  head dims {[d for _, d in HEAD_DIM_CASES]}: largest errors {out}")
+    return out
+
+
 def kernel_parity(rng, device="cuda"):
     """Phase 3 (on CPU tensors with ``device="cpu"``, a rehearsal of the
     wrappers' plain versions). Returns (flagship inputs, their K2 inputs, K1's errors at
-    the flagship, K2's largest error there, (K1's, K2's) largest error at N=768)."""
+    the flagship, K2's largest error there, (K1's, K2's) largest error at N=768, the
+    head-dim cases' errors)."""
     log("== phase 3: kernel parity on the card")
     f32 = torch.float32
     flagship = attention_case(rng, 1, 200, 256, 20, 4, 32, f32, device=device)
@@ -436,14 +494,16 @@ def kernel_parity(rng, device="cuda"):
     check_autograd("flagship f32", flagship, 1e-4)
     check_autograd("flagship f32, e_out unused", flagship, 1e-4, with_de=False)
     check_autograd("flagship bf16", to_bf16(flagship), 3e-2)
-    return flagship, flagship_bwd, fwd_errs[0], bwd_err, n768_errs
+    head_dims = head_dim_parity(rng, device)
+    return flagship, flagship_bwd, fwd_errs[0], bwd_err, n768_errs, head_dims
 
 
 def time_kernels(rng, flagship, flagship_bwd) -> dict:
     """K1, K2 (with de) and the CSR build at B=1, K=20, H*D=128 f32 for
     each bucket N of TIMED_N (N=256: the flagship case), each kernel on a
     prebuilt CSR as the main path runs it, beside its bound; the plain
-    versions at N=256."""
+    versions at N=256; K1 and K2 at N=256 for each (H, D) of
+    HEAD_DIM_CASES, beside their bounds."""
     by_n = {}
     with torch.inference_mode():
         for n, real in TIMED_N.items():
@@ -470,7 +530,26 @@ def time_kernels(rng, flagship, flagship_bwd) -> dict:
         k1_plain, _ = device_ms(lambda: plain.edge_attention_forward(*flagship), inner=5)
         k2_plain, _ = device_ms(lambda: plain.edge_attention_backward(*flagship_bwd), inner=5)
     log(f"  N=256 plain versions: K1 {k1_plain:.4f} ms, K2 {k2_plain:.4f} ms")
-    return {"by_n": by_n, "k1_plain_ms": k1_plain, "k2_plain_ms": k2_plain}
+    by_head_dim = {}
+    with torch.inference_mode():
+        for heads, head_dim in HEAD_DIM_CASES:
+            args = attention_case(rng, 1, 200, 256, 20, heads, head_dim, torch.float32)
+            bargs = backward_case(rng, args)
+            csr = cuda_attention.in_edge_csr(args[4])
+            out = cuda_attention.edge_attention_forward(*args, in_edges=csr)
+            grads = cuda_attention.edge_attention_backward(*bargs, in_edges=csr)
+            k1_ms, _ = device_ms(lambda: cuda_attention.edge_attention_forward(*args,
+                                                                               in_edges=csr))
+            k2_ms, _ = device_ms(lambda: cuda_attention.edge_attention_backward(*bargs,
+                                                                                in_edges=csr))
+            k1_bound, _ = attention_bound(args, out)
+            k2_bound, _ = backward_bound(bargs, grads)
+            by_head_dim[f"H={heads} D={head_dim}"] = {
+                "k1_ms": k1_ms, "k1_bound_ms": k1_bound, "k2_ms": k2_ms, "k2_bound_ms": k2_bound}
+            log(f"  H={heads} D={head_dim} (B=1 N=256/200 K=20 f32): K1 {k1_ms:.5f} ms (bound "
+                f"{k1_bound:.5f}), K2 {k2_ms:.5f} ms (bound {k2_bound:.5f})")
+    return {"by_n": by_n, "k1_plain_ms": k1_plain, "k2_plain_ms": k2_plain,
+            "by_head_dim": by_head_dim}
 
 
 # ---------------------------------------------------------------------------
@@ -634,12 +713,13 @@ def compare_train_step(label, model, plain_model, batch, seed, spread_seeds=()):
     return abs(loss_k - loss_p), worst[0], max(spread.values())
 
 
-def time_train_step(state, batch, runs: int = 10) -> dict:
+def time_train_step(state, batch, runs: int = 10, warmup: int = 2, split: bool = True) -> dict:
     """Train step ms (forward + backward + optimizer, host clock around
-    synchronized steps, median of ``runs``), its peak device memory, and
-    the same step split at synchronize points into the train-mode forward
-    with the loss, the backward, and the optimizer update (medians)."""
-    for _ in range(2):
+    synchronized steps, median of ``runs`` after ``warmup``), its peak
+    device memory, and (``split``) the same step split at synchronize
+    points into the train-mode forward with the loss, the backward, and
+    the optimizer update (medians)."""
+    for _ in range(warmup):
         train_step(state, batch, guard=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -652,7 +732,7 @@ def time_train_step(state, batch, runs: int = 10) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     model, device = state.model, batch.contact_map.device
     phases = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
-    for _ in range(runs):
+    for _ in range(runs if split else 0):
         t0 = time.perf_counter()
         model.train()
         model.zero_grad(set_to_none=True)
@@ -671,7 +751,7 @@ def time_train_step(state, batch, runs: int = 10) -> dict:
         for key, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2)):
             phases[key].append(dt * 1e3)
     return {"train_step_ms": statistics.median(walls), "max_memory_allocated_gb": peak,
-            **{k: statistics.median(v) for k, v in phases.items()}}
+            **{k: statistics.median(v) for k, v in phases.items() if v}}
 
 
 def profile_train_step(state, batch) -> dict:
@@ -699,8 +779,8 @@ def profile_train_step(state, batch) -> dict:
 # ---------------------------------------------------------------------------
 
 LIFECYCLE_EPOCHS = 2
-PREEMPT_AT = len(COMPLEXES) + 2  # the fault fires at epoch 2's second train batch
 LIFECYCLE_PATHS = ("resume", "test", "predict_ckpt")
+DEEPLAB_LIFECYCLE = (COMPLEXES[0], COMPLEXES[2])  # the DeepLab lifecycle's two complexes
 
 
 def _tree_diff(a, b) -> float:
@@ -743,12 +823,17 @@ def _train_argv(root, ckpt_dir, seed, *extra):
             "--log_every", "0", "--ckpt_dir", ckpt_dir, *extra]
 
 
-def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
-    """Phase 5b in a fresh directory. ``exact`` demands bitwise equality of
-    the resumed and the uninterrupted run; otherwise (a run without
-    deterministic algorithms) losses and metrics within 1e-5 and weights
-    and moments within 1e-4. ``flags`` go to every CLI call (none on the
-    card; a CPU rehearsal passes a small model and ``--device cpu``)."""
+def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
+                  save_modes: bool = True) -> dict:
+    """Phase 5b in a fresh directory, on a dataset of ``sizes``. ``exact``
+    demands bitwise equality of the resumed and the uninterrupted run;
+    otherwise losses and metrics within 1e-5 and weights and moments
+    within 1e-4. ``flags`` go to every CLI call (the flagship's on the
+    card, or ``--interact_module_type deeplab``; a CPU rehearsal passes a
+    small model and ``--device cpu``). The fault plan preempts the run at
+    epoch 2's second train batch. ``save_modes`` also runs the same
+    training with epoch-boundary saves only (asynchronous and synchronous)
+    and holds them to the uninterrupted run."""
 
     def train(ckpt_dir, *extra):
         args = train_cli.parse_args(_train_argv(root, ckpt_dir, seed, *extra, *flags))
@@ -757,11 +842,12 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
     tol_metric, tol_state = (0.0, 0.0) if exact else (1e-5, 1e-4)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lifecycle_") as work:
         root = os.path.join(work, "data")
-        write_tiny_npz_dataset(root, sizes=COMPLEXES, seed=seed, knn=constants.KNN,
+        write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
                                geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
         n_train, n_val, n_test = (len(DIPSDataset(root, m)) for m in ("train", "val", "test"))
-        dirs = {name: os.path.join(work, name)
-                for name in ("whole", "preempted", "epoch_saves", "sync_epoch_saves")}
+        preempt_at = n_train + 2
+        modes = ("epoch_saves", "sync_epoch_saves") if save_modes else ()
+        dirs = {name: os.path.join(work, name) for name in ("whole", "preempted", *modes)}
 
         # The uninterrupted run, with a save after every step.
         (hist_a, test_a), counts_a = train(dirs["whole"], "--save_every_steps", "1")
@@ -769,10 +855,12 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
                          LIFECYCLE_EPOCHS * (n_train + n_val) + n_test, LIFECYCLE_EPOCHS * n_train)
         # The same with epoch-boundary saves only, written asynchronously
         # and synchronously.
-        (hist_c, _), _ = train(dirs["epoch_saves"])
-        (hist_s, _), _ = train(dirs["sync_epoch_saves"], "--sync_checkpoint")
+        hist_c = hist_s = []
+        if save_modes:
+            (hist_c, _), _ = train(dirs["epoch_saves"])
+            (hist_s, _), _ = train(dirs["sync_epoch_saves"], "--sync_checkpoint")
         # Preempted through the fault plan in mid-epoch 2, then resumed.
-        faults.configure({"train.sigterm": [PREEMPT_AT]})
+        faults.configure({"train.sigterm": [preempt_at]})
         out = io.StringIO()
         try:
             with contextlib.redirect_stdout(out):
@@ -787,14 +875,14 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
         log(f"  preempted run: rc {rc}, launches {counts_b}; {preempted_line[0]}")
         (hist_b, test_b), counts_resume = train(dirs["preempted"], "--save_every_steps", "1",
                                                  "--resume")
-        remaining = LIFECYCLE_EPOCHS * n_train - (PREEMPT_AT - 1)
+        remaining = LIFECYCLE_EPOCHS * n_train - (preempt_at - 1)
         _expect_launches("resumed cli.train", counts_resume, remaining + n_val + n_test, remaining)
 
         ckpts = {name: Checkpointer(CheckpointConfig(directory=d)) for name, d in dirs.items()}
         finals = {name: ck.restore(None, which="last") for name, ck in ckpts.items()}
         state_diff = _tree_diff(finals["whole"], finals["preempted"])
-        saves_diff = max(_tree_diff(finals["whole"], finals[name])
-                         for name in ("epoch_saves", "sync_epoch_saves"))
+        saves_diff = max((_tree_diff(finals["whole"], finals[name]) for name in modes),
+                         default=0.0)
         check(state_diff <= tol_state, f"resumed run's last/ state differs from the uninterrupted "
               f"run's by {state_diff:.3g} (tol {tol_state})")
         check(saves_diff <= tol_state, f"mid-epoch saves changed training: {saves_diff:.3g}")
@@ -806,7 +894,7 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
         for key, value in test_a.items():
             check(_same_metric(test_b[key], value, tol_metric),
                   f"resumed run's {key} {test_b[key]} vs uninterrupted {value}")
-        for name in ("preempted", "epoch_saves", "sync_epoch_saves"):
+        for name in ("preempted", *modes):
             check((ckpts[name].best_step(), ckpts[name].latest_step())
                   == (ckpts["whole"].best_step(), ckpts["whole"].latest_step()),
                   f"{name}: best/latest steps differ from the uninterrupted run's")
@@ -855,6 +943,8 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=()) -> dict:
                   for name, hist in (("save_every_step", hist_a), ("epoch_saves", hist_c),
                                      ("sync_epoch_saves", hist_s))}
         for name, rows in epochs.items():
+            if not rows:
+                continue
             log(f"  epoch wall ({name}): " + "; ".join(
                 f"epoch {i}: train {r['train_seconds'] * 1e3:.1f} ms, epoch "
                 f"{r['epoch_seconds'] * 1e3:.1f} ms, boundary save blocking "
@@ -938,6 +1028,9 @@ def config_variants(cfg: ModelConfig) -> dict:
         "gcn": (dataclasses.replace(cfg, gnn_layer_type="gcn"), "one"),
         "attention": (dataclasses.replace(cfg, decoder=dataclasses.replace(
             cfg.decoder, use_attention=True)), "one"),
+        # Head dim 64: the kernels' paths beyond the flagship's D=32.
+        "heads2": (dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, num_heads=2)),
+                   "one"),
     }
 
 
@@ -1075,10 +1168,10 @@ def check_deeplab_stems(model, raw, device) -> tuple:
     return diff, spread
 
 
-def run_config_train(name, flags, sizes, seed, device, smi, runs) -> dict:
+def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, split=True) -> dict:
     """``cli.train`` for one epoch on ``sizes`` with ``flags``: exact launch
     counts, peak memory, finite losses; then a train step of the largest
-    complex timed on its own (median of ``runs``)."""
+    complex timed on its own (median of ``runs`` after ``warmup``)."""
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as root:
         write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
                                geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
@@ -1100,21 +1193,24 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs) -> dict:
         batch = max(BucketedLoader(DIPSDataset(root, "train")),
                     key=lambda b: b.contact_map.numel())
     model = load_model(model_config_from_args(args), device, seed=seed)
-    t = time_train_step(create_train_state(model, seed=seed), batch.to(device), runs=runs)
+    t = time_train_step(create_train_state(model, seed=seed), batch.to(device), runs=runs,
+                        warmup=warmup, split=split)
     b1, b2 = batch.contact_map.shape[1:]
+    parts = (f"; forward+loss {t['forward_ms']:.3f}, backward {t['backward_ms']:.3f}, "
+             f"optimizer {t['optimizer_ms']:.3f}" if split else "")
     log(f"  cli.train {name} 1 epoch: {steps} train steps, launches K1 {counts[0]} K2 "
         f"{counts[1]}, CSR builds {counts[2]}, peak {peak:.3f} GiB, train_loss "
         f"{epoch['train_loss']:.4f}, val_ce {epoch['val_ce']:.4f}; train step {b1}/{b2}: "
-        f"{t['train_step_ms']:.3f} ms (median of {runs}; forward+loss {t['forward_ms']:.3f}, "
-        f"backward {t['backward_ms']:.3f}, optimizer {t['optimizer_ms']:.3f}), peak "
+        f"{t['train_step_ms']:.3f} ms (median of {runs}{parts}), peak "
         f"{t['max_memory_allocated_gb']:.3f} GiB; [{smi}]")
     return {"launches": counts, "train_steps": steps, "epoch_peak_gib": peak,
             "buckets": (int(b1), int(b2)), **t}
 
 
 # Timing runs (medians) per path: maps of one tile, tiled maps, the DeepLab
-# train step, the tiled train step.
-CONFIG_RUNS = {"predict": 20, "predict_tiled": 5, "train": 5, "train_tiled": 3}
+# train step, the tiled train step. Cut from 20 / 5 / 5 / 3 in PR 6 to keep
+# the script near 400 s after phase 8 joined it.
+CONFIG_RUNS = {"predict": 5, "predict_tiled": 3, "train": 3, "train_tiled": 2}
 
 
 def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS) -> dict:
@@ -1141,7 +1237,327 @@ def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS)
     results["train_tiled"] = run_config_train(
         "tiled", ["--tile_pair_map"], TILED_TRAIN, seed, device, smi, runs["train_tiled"])
     torch.cuda.empty_cache()
+    results["train_heads2"] = run_config_train(
+        "heads2", ["--num_gnn_attention_heads", "2"], COMPLEXES, seed, device, smi,
+        runs["train"])
+    torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 8a: decoder remat
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "convs")
+
+
+def compare_remat_step(label, cfg, remat_cfg, batch, seed, device) -> dict:
+    """One train step with remat against one without, from the same
+    weights, batch and dropout seed, under deterministic algorithms: loss
+    within 1e-5 and every gradient within 1e-4 (expected: equal), and each
+    step's time and peak memory."""
+    model = load_model(cfg, device, seed=seed)
+    remat = load_model(remat_cfg, device, seed=seed)
+    remat.load_state_dict(model.state_dict())
+    batch = batch.to(device)
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, m in (("plain", model), ("remat", remat)):
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+            m.load_state_dict(weights)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = loss_and_grads(m, batch, False, dropout_generator(seed, 0, device))
+            torch.cuda.synchronize()
+            out[name] = (loss.item(), {n: p.grad.detach().clone()
+                                       for n, p in m.named_parameters()},
+                         (time.perf_counter() - t0) * 1e3,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+            m.load_state_dict(weights)  # the step moved the batch statistics
+    finally:
+        torch.use_deterministic_algorithms(False)
+    loss_diff = abs(out["remat"][0] - out["plain"][0])
+    grad_diff = max((out["remat"][1][n] - g).abs().max().item()
+                    for n, g in out["plain"][1].items())
+    check(loss_diff <= 1e-5, f"{label}: remat loss differs by {loss_diff:.3g}")
+    for n, g in out["plain"][1].items():
+        check(torch.allclose(out["remat"][1][n], g, rtol=1e-4, atol=1e-4),
+              f"{label}: remat grad {n} differs by {(out['remat'][1][n] - g).abs().max():.3g}")
+    log(f"  {label}: remat vs plain step |loss diff| {loss_diff:.3g} (tol 1e-5), max |grad "
+        f"diff| {grad_diff:.3g} (tol 1e-4); first step wall plain {out['plain'][2]:.1f} ms / "
+        f"{out['plain'][3]:.3f} GiB, remat {out['remat'][2]:.1f} ms / {out['remat'][3]:.3f} GiB")
+    del model, remat
+    torch.cuda.empty_cache()
+    return {"loss_diff": loss_diff, "max_grad_diff": grad_diff,
+            "plain_peak_gib": out["plain"][3], "remat_peak_gib": out["remat"][3]}
+
+
+def run_remat(cfg, seed, device, smi, runs) -> dict:
+    """Phase 8a: remat against no remat on a two-tile map (each policy) and
+    on a DeepLab step; then one ``cli.train`` epoch of a six-tile complex
+    with ``--tile_pair_map --remat`` per policy (peak memory, step time),
+    beside the two-tile step's time with and without remat."""
+    log("== phase 8a: decoder remat (--remat, --remat_policy)")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as root:
+        write_tiny_npz_dataset(root, sizes=TILED_TRAIN[:1] + COMPLEXES[1:2], seed=seed,
+                               knn=constants.KNN, geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+        batches = list(BucketedLoader(DIPSDataset(root, "train")))
+    tiled_batch = max(batches, key=lambda b: b.contact_map.numel())
+    smoke_batch = min(batches, key=lambda b: b.contact_map.numel())
+    tiled = dataclasses.replace(cfg, tile_pair_map=True)
+    for policy in REMAT_POLICIES:
+        remat = dataclasses.replace(tiled, decoder=dataclasses.replace(
+            tiled.decoder, remat=True, remat_policy=policy))
+        out[f"tiled_two_tiles_{policy}"] = compare_remat_step(
+            f"tiled 300x200 (two tiles), remat {policy}", tiled, remat, tiled_batch, seed,
+            device)
+    deeplab = dataclasses.replace(cfg, interact_module_type="deeplab")
+    out["deeplab"] = compare_remat_step(
+        "DeepLab 200x180", deeplab, dataclasses.replace(deeplab, deeplab=dataclasses.replace(
+            deeplab.deeplab, remat=True)), smoke_batch, seed, device)
+    # The two-tile step timed with and without remat, for the per-tile ratio.
+    for name, c in (("no_remat", tiled), ("remat_full", dataclasses.replace(
+            tiled, decoder=dataclasses.replace(tiled.decoder, remat=True)))):
+        t = time_train_step(create_train_state(load_model(c, device, seed=seed), seed=seed),
+                            tiled_batch.to(device), runs=runs, warmup=1, split=False)
+        out[f"two_tile_step_{name}"] = t
+        log(f"  two-tile train step ({name}): {t['train_step_ms']:.3f} ms (median of {runs}), "
+            f"peak {t['max_memory_allocated_gb']:.3f} GiB; [{smi}]")
+        torch.cuda.empty_cache()
+    for policy in REMAT_POLICIES:
+        out[f"train_six_tiles_{policy}"] = run_config_train(
+            f"tiled_remat_{policy}", ["--tile_pair_map", "--remat", "--remat_policy", policy],
+            [TILED_COMPLEX], seed, device, smi, runs=1, warmup=1, split=False)
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: the reference-checkpoint importer
+# ---------------------------------------------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                      "full_model_parity.npz")
+GRAPH_FIELDS = ("node_feats", "coords", "edge_feats", "nbr_idx", "src_nbr_eids",
+                "dst_nbr_eids", "node_mask", "num_nodes")
+
+
+def write_lightning_ckpt(path, sd, hparams) -> None:
+    """A reference state dict as a Lightning checkpoint's two keys."""
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in sd.items()},
+                "hyper_parameters": dict(hparams)}, path)
+
+
+def _quiet(fn):
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = fn()
+    return rc, out.getvalue()
+
+
+def run_importer(cfg, raws, seed, device, flags=()) -> dict:
+    """Phase 8b: the golden fixture's reference state dict as a Lightning
+    ``.ckpt`` through ``cli.import_checkpoint`` and the ``cli.predict
+    --ckpt_name`` loader on the card against its reference logits; a
+    flagship-width reference ``.ckpt`` imported, predicted (kernel path
+    against the plain path), tested by ``cli.test`` directly, and
+    fine-tuned for one step. ``flags`` (the model of ``cfg``; ``--device
+    cpu``) go to the flagship's CLI calls, for a CPU rehearsal."""
+    from deepinteract_tpu_torch.cli import import_checkpoint as import_cli
+    from deepinteract_tpu_torch.data.graph import ProteinGraph
+    from deepinteract_tpu_torch.training.import_torch import synthesize_reference_state_dict
+
+    log("== phase 8b: reference-checkpoint importer (cli.import_checkpoint, --ckpt_name)")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as work:
+        with np.load(GOLDEN) as z:
+            data = {k: z[k] for k in z.files}
+        sd = {k[len("sd/"):]: v for k, v in data.items() if k.startswith("sd/")}
+        meta = {k[len("meta/"):]: int(v) for k, v in data.items() if k.startswith("meta/")}
+        golden_ckpt = os.path.join(work, "golden.ckpt")
+        write_lightning_ckpt(golden_ckpt, sd, {})
+        golden_flags = ["--num_gnn_hidden_channels", str(meta["hidden"]),
+                        "--num_gnn_attention_heads", str(meta["heads"]),
+                        "--num_interact_layers", str(meta["num_chunks"]),
+                        "--num_interact_hidden_channels", str(meta["hidden"]),
+                        "--node_count_limit", str(meta["limit"])]
+        rc, text = _quiet(lambda: import_cli.main(
+            ["--ckpt", golden_ckpt, "--out_dir", os.path.join(work, "golden"), *golden_flags,
+             "--device", str(device)]))
+        check(rc == 0, f"cli.import_checkpoint of the golden .ckpt: rc {rc}")
+        log(f"  golden .ckpt ({len(sd)} reference keys): {text.strip().splitlines()[0]}")
+        golden_cfg = model_config_from_args(build_parser("x").parse_args(golden_flags))
+        model = load_model(golden_cfg, device, ckpt_name=os.path.join(work, "golden"))
+        graphs = [ProteinGraph(**{f: torch.from_numpy(data[f"cx/{leg}/{f}"]) for f in
+                                  GRAPH_FIELDS}).to(device) for leg in ("graph1", "graph2")]
+        with torch.inference_mode():
+            logits, counts = _counted(lambda: model(*graphs))
+        logits = logits.permute(0, 3, 1, 2).float().cpu().numpy()
+        diff = float(np.abs(logits - data["ref_logits"]).max())
+        _expect_launches("golden predict", counts, 1, 0)
+        check(np.allclose(logits, data["ref_logits"], rtol=1e-4, atol=1e-4),
+              f"golden logits differ from the reference's by {diff:.3g}")
+        log(f"  golden predict --ckpt_name on the card: max |logits - ref_logits| {diff:.3g} "
+            f"(rtol 1e-4, atol 1e-4); launches {counts}")
+        out["golden_max_logit_diff"], out["golden_launches"] = diff, counts
+
+        # A flagship-width reference checkpoint.
+        ref_sd = synthesize_reference_state_dict(cfg, seed=seed)
+        flag_ckpt = os.path.join(work, "flagship.ckpt")
+        write_lightning_ckpt(flag_ckpt, ref_sd, {"num_gnn_hidden_channels": cfg.gnn.hidden,
+                                                 "num_gnn_attention_heads": cfg.gnn.num_heads})
+        imported = os.path.join(work, "flagship")
+        rc, _ = _quiet(lambda: import_cli.main(["--ckpt", flag_ckpt, "--out_dir", imported,
+                                                *flags]))
+        check(rc == 0, f"cli.import_checkpoint of the flagship .ckpt: rc {rc}")
+        model = load_model(cfg, device, ckpt_name=imported)
+        plain_model = load_model(plain_variant(cfg), device, ckpt_name=imported)
+        res, counts = _counted(lambda: predict_complex(raws[0], model, device))
+        ref = predict_complex(raws[0], plain_model, device)["logits"]
+        diff = float(np.abs(res["logits"] - ref).max())
+        _expect_launches("imported predict", counts, 1, 0)
+        check(np.allclose(res["logits"], ref, rtol=1e-4, atol=1e-4),
+              f"imported flagship: kernel vs plain logits differ by {diff:.3g}")
+        npz = os.path.join(work, "c.npz")
+        save_complex_npz(npz, raws[0]["graph1"], raws[0]["graph2"], raws[0]["examples"], "c")
+        (rc, _), counts_cli = _counted(lambda: _quiet(lambda: predict_cli.main([
+            "--input_npz", npz, "--output_dir", os.path.join(work, "pred"), "--ckpt_name",
+            imported, *flags])))
+        probs = np.load(os.path.join(work, "pred", "contact_prob_map.npy"))
+        check(rc == 0 and np.array_equal(probs, res["contact_prob_map"]),
+              "cli.predict --ckpt_name <imported> differs from the loaded model")
+        _expect_launches("cli.predict --ckpt_name <imported>", counts_cli, 1, 0)
+        log(f"  flagship reference .ckpt ({len(ref_sd)} keys) imported: kernel vs plain "
+            f"logits {diff:.3g} (tol 1e-4), cli.predict --ckpt_name launches {counts_cli}")
+        out["flagship_max_logit_diff_vs_plain"] = diff
+
+        root = os.path.join(work, "data")
+        write_tiny_npz_dataset(root, sizes=COMPLEXES[:1], seed=seed, knn=constants.KNN,
+                               geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+        test_args = test_cli.parse_args(["--dips_root", root, "--ckpt_name", flag_ckpt,
+                                         "--csv_out", os.path.join(work, "top.csv"), *flags])
+        metrics, counts_test = _counted(lambda: _quiet(lambda: test_cli.run(test_args))[0])
+        _expect_launches("cli.test --ckpt_name <file.ckpt>", counts_test, 1, 0)
+        trainer = Trainer(model)
+        ref_t = trainer.evaluate(trainer.init_state(), BucketedLoader(DIPSDataset(root, "test")),
+                                 stage="test")
+        check(all(_same_metric(metrics[k], v, 0.0) for k, v in ref_t.items()),
+              f"cli.test on the .ckpt: {metrics} vs the imported model's {ref_t}")
+        ft = train_cli.parse_args(["--dips_root", root, "--num_epochs", "1", "--fine_tune",
+                                   "--ckpt_name", imported, "--ckpt_dir",
+                                   os.path.join(work, "ft"), "--log_every", "0",
+                                   "--seed", str(seed), *flags])
+        (history, _), counts_ft = _counted(lambda: train_cli.run(ft))
+        _expect_launches("cli.train --fine_tune --ckpt_name <imported>", counts_ft, 3, 1)
+        check(math.isfinite(history[0]["train_loss"]), "fine-tune: train_loss not finite")
+        log(f"  cli.test --ckpt_name flagship.ckpt: launches {counts_test}, metrics equal the "
+            f"imported model's (test_ce {metrics['test_ce']:.6f}); --fine_tune --ckpt_name "
+            f"<imported>: 1 step, launches {counts_ft}, train_loss "
+            f"{history[0]['train_loss']:.4f}")
+        out["launches"] = {"golden": out["golden_launches"], "test_ckpt": counts_test,
+                           "predict_ckpt": counts_cli, "fine_tune": counts_ft}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8c: the training supervisor
+# ---------------------------------------------------------------------------
+
+HANG_AT = 2  # the second train batch of the first epoch
+# A healthy child stamps progress at least every ~1.5 s (a flagship step is
+# ~0.5 s, an eval ~0.2 s, a save ~1 s on the card) and beats every 2 s.
+HANG_TIMEOUT_S = 10.0
+HEARTBEAT_S = 2.0
+
+
+def _cli_train(root, ckpt_dir, seed, *extra, faults_plan=None, flags=()):
+    """Start ``cli.train`` on ``root`` in a process of its own; returns the
+    Popen (text pipes)."""
+    env = {k: v for k, v in os.environ.items() if k != "DI_FAULTS"}
+    if faults_plan:
+        env["DI_FAULTS"] = faults_plan
+    return subprocess.Popen(
+        [sys.executable, "-m", "deepinteract_tpu_torch.cli.train", "--dips_root", root,
+         "--num_epochs", "1", "--seed", str(seed), "--log_every", "0", "--ckpt_dir",
+         ckpt_dir, "--save_every_steps", "1", "--deterministic", "--test_csv",
+         ckpt_dir + "_top.csv", *flags, *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, label):
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"chip_smoke FAILED: {label} did not end within 600 s")
+    check(proc.returncode == 0, f"{label}: rc {proc.returncode}\n{out[-2000:]}\n{err[-2000:]}")
+    return out
+
+
+def run_supervisor(seed, flags=(), hang_timeout_s=HANG_TIMEOUT_S) -> dict:
+    """Phase 8c: ``cli.train --supervise`` at the flagship width with a hang
+    injected at the second train batch: one restart for a hang, a
+    ``train_supervise/v1`` record that ``tools/check_cli_contract.py``
+    accepts, and the final state within the bars of an unsupervised run of
+    the same command (losses and metrics 1e-5, weights 1e-4). Both run
+    with ``--deterministic``: without it the two runs' weights differed by
+    3.77e-4 in the first card run of this phase. Kernels outside
+    deterministic mode (cuDNN's, atomics) choose their own sum orders, so
+    a difference of that size cannot tell a faulty resume from noise. ``flags`` go
+    to both commands (a CPU rehearsal's small model and ``--device cpu``)."""
+    log("== phase 8c: training supervisor (cli.train --supervise, training.hang)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervise_") as work:
+        root = os.path.join(work, "data")
+        write_tiny_npz_dataset(root, sizes=COMPLEXES, seed=seed, knn=constants.KNN,
+                               geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+        # The two commands run side by side on the card.
+        t0 = time.perf_counter()
+        plain = _cli_train(root, os.path.join(work, "plain"), seed, flags=flags)
+        sup = _cli_train(root, os.path.join(work, "sup"), seed, "--supervise",
+                         "--hang_timeout_s", str(hang_timeout_s), "--start_grace_s", "600",
+                         "--heartbeat_seconds", str(HEARTBEAT_S),
+                         "--train_restart_backoff_s", "0", faults_plan=f"training.hang=@{HANG_AT}",
+                         flags=flags)
+        sup_out = _finish(sup, "supervised cli.train")
+        t2 = time.perf_counter()
+        _finish(plain, "unsupervised cli.train")
+        t1 = time.perf_counter()
+        record = json.loads(sup_out.strip().splitlines()[-1])
+        contract = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                          "check_cli_contract.py"), "train_supervise", "-"],
+            input=sup_out, capture_output=True, text=True, timeout=60)
+        check(contract.returncode == 0, f"train_supervise record refused: {contract.stderr}")
+        check((record["restarts"], record["hang_kills"], record["crashes"], record["ok"])
+              == (1, 1, 0, True), f"supervisor record {record}")
+        check("SIGKILL" in sup_out, "the supervisor's log names no kill")
+        cks = {name: Checkpointer(CheckpointConfig(directory=os.path.join(work, name)))
+               for name in ("plain", "sup")}
+        finals = {name: ck.restore(None, which="last") for name, ck in cks.items()}
+        weight_diff = _tree_diff(finals["plain"], finals["sup"])
+        metric = {name: ck._metrics("best", ck.steps("best")[-1]) for name, ck in cks.items()}
+        metric_diff = max(abs(metric["plain"][k] - metric["sup"][k]) for k in metric["plain"]
+                          if not k.endswith("_seconds") and math.isfinite(metric["plain"][k]))
+        csvs = {name: np.genfromtxt(os.path.join(work, f"{name}_top.csv"), delimiter=",",
+                                    skip_header=1, usecols=range(1, 7))
+                for name in ("plain", "sup")}
+        test_diff = float(np.nanmax(np.abs(csvs["plain"] - csvs["sup"])))
+        check(weight_diff <= 1e-4, f"supervised run's last/ state differs by {weight_diff:.3g}")
+        check(metric_diff <= 1e-5 and test_diff <= 1e-5,
+              f"supervised run's metrics differ: epoch {metric_diff:.3g}, test {test_diff:.3g}")
+        log(f"  supervised run: 1 restart (hang, killed after {hang_timeout_s:.0f} s without "
+            f"progress), record accepted by tools/check_cli_contract.py; vs the unsupervised "
+            f"run: last/ state max |diff| {weight_diff:.3g} (tol 1e-4), epoch metrics "
+            f"{metric_diff:.3g}, test metrics {test_diff:.3g} (tol 1e-5); wall (side by "
+            f"side) supervised {t2 - t0:.1f} s, both {t1 - t0:.1f} s")
+        return {"record": record, "state_max_diff": weight_diff,
+                "epoch_metric_max_diff": metric_diff, "test_metric_max_diff": test_diff,
+                "wall_s": {"supervised": t2 - t0, "both": t1 - t0}}
 
 
 def main(argv=None) -> int:
@@ -1174,7 +1590,7 @@ def main(argv=None) -> int:
 
     build_kernels()
     rng = np.random.default_rng(args.seed)
-    flagship, flagship_bwd, fwd_errs, bwd_err, n768_errs = kernel_parity(rng)
+    flagship, flagship_bwd, fwd_errs, bwd_err, n768_errs, head_dims = kernel_parity(rng)
 
     log("== phase 4: predict path (predict_complex, flagship width, seeded weights)")
     cfg = ModelConfig()
@@ -1212,19 +1628,14 @@ def main(argv=None) -> int:
     del plain_model
 
     log("== phase 5b: training lifecycle (cli.train --ckpt_dir / --resume, cli.test and "
-        "predict --ckpt_name; flagship width; deterministic algorithms)")
+        "predict --ckpt_name; flagship width, then DeepLab; deterministic algorithms)")
     torch.use_deterministic_algorithms(True)
     try:
         lifecycle = run_lifecycle(raws[0], args.seed, device, exact=True)
-    except RuntimeError as err:
-        if "deterministic" not in str(err):
-            raise
-        op = str(err).splitlines()[0]
-        log(f"  deterministic algorithms refused an op ({op}); the resume is checked at the "
-            "train-step bar instead")
-        torch.use_deterministic_algorithms(False)
-        lifecycle = run_lifecycle(raws[0], args.seed, device, exact=False)
-        lifecycle["nondeterministic_op"] = op
+        log("  DeepLab lifecycle (--interact_module_type deeplab, two complexes):")
+        lifecycle["deeplab"] = run_lifecycle(
+            raws[0], args.seed, device, exact=True, flags=["--interact_module_type", "deeplab"],
+            sizes=DEEPLAB_LIFECYCLE, save_modes=False)
     finally:
         torch.use_deterministic_algorithms(False)
     lifecycle["checkpoint"] = time_checkpoint(state)
@@ -1239,9 +1650,9 @@ def main(argv=None) -> int:
     for batch in batches:
         b1, b2 = batch.contact_map.shape[1:]
         n1, n2 = int(batch.graph1.num_nodes[0]), int(batch.graph2.num_nodes[0])
-        t = time_train_step(state, batch.to(device))
+        t = time_train_step(state, batch.to(device), runs=5)
         log(f"  train step {n1}x{n2} (buckets {b1}/{b2}): {t['train_step_ms']:.3f} ms "
-            f"(host clock, synchronized, median of 10), peak memory "
+            f"(host clock, synchronized, median of 5), peak memory "
             f"{t['max_memory_allocated_gb']:.3f} GiB; split: forward+loss "
             f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, optimizer "
             f"{t['optimizer_ms']:.3f} ms")
@@ -1257,7 +1668,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     configs = run_model_configs(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
                                 device, smi)
+    remat = run_remat(cfg, args.seed, device, smi, CONFIG_RUNS["train_tiled"])
+    for policy in REMAT_POLICIES:
+        configs[f"train_six_tiles_remat_{policy}"] = remat[f"train_six_tiles_{policy}"]
+    importer = run_importer(cfg, raws, args.seed, device)
+    supervisor = run_supervisor(args.seed)
+    log("  remat: " + json.dumps({k: v for k, v in remat.items()
+                                  if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
+    # Launches of the other counted paths: (K1, K2, CSR builds) each.
+    more_paths = {**{f"{path}_deeplab": lifecycle["deeplab"]["launches"][path]
+                     for path in LIFECYCLE_PATHS},
+                  **{f"import_{path}": counts for path, counts in importer["launches"].items()}}
 
     at = ktimes["by_n"][256]
     common = {"route": "cuda", "library_ms": None, "parity": "pass",
@@ -1267,7 +1689,13 @@ def main(argv=None) -> int:
                                      **{path: lifecycle["launches"][path][2]
                                         for path in LIFECYCLE_PATHS},
                                      **{path: configs[path]["launches"][2]
-                                        for path in config_paths}},
+                                        for path in config_paths},
+                                     **{path: c[2] for path, c in more_paths.items()}},
+              "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
+                             ("tiled_two", "deeplab"))},
+                         "importer": {k: v for k, v in importer.items() if k != "launches"},
+                         "supervisor": {k: v for k, v in supervisor.items() if k != "record"},
+                         "supervisor_restarts": supervisor["record"]["restarts"]},
               "model_configs": {
                   "predict_max_logit_diff_vs_plain": {
                       path: configs[path]["max_logit_diff"] for path in config_paths
@@ -1290,8 +1718,12 @@ def main(argv=None) -> int:
         "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0],
                              **{path: lifecycle["launches"][path][0]
                                 for path in LIFECYCLE_PATHS},
-                             **{path: configs[path]["launches"][0] for path in config_paths}},
+                             **{path: configs[path]["launches"][0] for path in config_paths},
+                             **{path: c[0] for path, c in more_paths.items()}},
         "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
+        "ms_by_head_dim": {k: t["k1_ms"] for k, t in ktimes["by_head_dim"].items()},
+        "bound_ms_by_head_dim": {k: t["k1_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
+        "max_abs_err_head_dims": {dt: e["k1"] for dt, e in head_dims.items()},
         "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
         "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
         "ms_by_n": {n: t["k1_ms"] for n, t in ktimes["by_n"].items()},
@@ -1305,8 +1737,13 @@ def main(argv=None) -> int:
         "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1],
                              **{path: lifecycle["launches"][path][1]
                                 for path in LIFECYCLE_PATHS},
-                             **{path: configs[path]["launches"][1] for path in config_paths}},
+                             **{path: configs[path]["launches"][1] for path in config_paths},
+                             **{path: c[1] for path, c in more_paths.items()}},
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
+        "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
+        "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
+        "max_abs_err_head_dims": {dt: e["k2"] for dt, e in head_dims.items()},
+        "function_max_abs_err_head_dims": {dt: e["function"] for dt, e in head_dims.items()},
         "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
         "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],
         "ms_by_n": {n: t["k2_ms"] for n, t in ktimes["by_n"].items()},

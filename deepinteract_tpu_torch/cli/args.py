@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import argparse
 
-from deepinteract_tpu_torch.models.decoder import DecoderConfig
+from deepinteract_tpu_torch.constants import NODE_COUNT_LIMIT
+from deepinteract_tpu_torch.models.decoder import REMAT_POLICIES, DecoderConfig
 from deepinteract_tpu_torch.models.geometric_transformer import GTConfig
 from deepinteract_tpu_torch.models.model import (GNN_LAYER_TYPES, INTERACT_MODULE_TYPES,
                                                  ModelConfig)
@@ -21,6 +22,9 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--num_gnn_layers", type=int, default=2)
     g.add_argument("--num_gnn_hidden_channels", type=int, default=128)
     g.add_argument("--num_gnn_attention_heads", type=int, default=4)
+    g.add_argument("--node_count_limit", type=int, default=NODE_COUNT_LIMIT,
+                   help="rows of the encoder's node-position embedding: the largest padded "
+                        "chain it takes (a checkpoint fixes it)")
     g.add_argument("--interact_module_type", choices=INTERACT_MODULE_TYPES, default="dilated",
                    help="dilated = SE-ResNet decoder (the reference's default); "
                         "deeplab = the DeepLabV3+ alternative")
@@ -52,6 +56,12 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="decode the pair map in 256x256 tiles once a padded chain exceeds "
                         "one tile (each tile is its own map)")
     g.add_argument("--dropout_rate", type=float, default=0.2)
+    g.add_argument("--remat", action="store_true",
+                   help="rematerialize decoder blocks in the backward (torch.utils.checkpoint): "
+                        "each block keeps only its input and recomputes the rest")
+    g.add_argument("--remat_policy", choices=REMAT_POLICIES, default="full",
+                   help="with --remat: 'full' recomputes whole blocks; 'convs' keeps the conv "
+                        "outputs and recomputes only the elementwise chain")
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -85,6 +95,7 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--min_delta", type=float, default=5e-6)
     g.add_argument("--weight_classes", action="store_true",
                    help="1:5 positive class weighting")
+    g.add_argument("--pos_prob_threshold", type=float, default=0.5)
     g.add_argument("--log_every", type=int, default=100)
     g.add_argument("--eval_batch_size", type=int, default=1,
                    help="complexes per val/test batch (metrics stay per complex)")
@@ -104,8 +115,19 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--stochastic_weight_avg", action="store_true",
                    help="average the params over the last 20%% of epochs")
     g.add_argument("--max_hours", type=float, default=None)
+    g.add_argument("--deterministic", action="store_true",
+                   help="run under torch.use_deterministic_algorithms (and a fixed cuBLAS "
+                        "workspace): two runs of one command, or a run and its --resume, "
+                        "give bitwise equal weights; an op without a deterministic kernel "
+                        "raises")
 
     g = p.add_argument_group("fault tolerance")
+    g.add_argument("--no_nonfinite_guard", action="store_true",
+                   help="disable the non-finite step guard (by default a step whose loss or "
+                        "gradients are not finite skips the optimizer update)")
+    g.add_argument("--max_bad_steps", type=int, default=10,
+                   help="abort with a diagnostic dump after this many consecutive "
+                        "non-finite (skipped) train steps")
     g.add_argument("--no_preemption_guard", action="store_true",
                    help="do not install SIGTERM/SIGINT handlers around fit (by default a "
                         "preemption flushes the newest checkpoint and exits 0; rerun with "
@@ -117,6 +139,35 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
                    help="mid-epoch checkpoint cadence in train steps, with the loader "
                         "cursor, so --resume re-pays at most N steps (0 = epoch "
                         "boundaries only)")
+    g.add_argument("--heartbeat_seconds", type=float, default=0.0,
+                   help="write <ckpt_dir>/obs/heartbeat_p0.json (process, phase, last "
+                        "progress step and time) every N seconds; 0 disables")
+
+    g = p.add_argument_group(
+        "supervision",
+        "run training as a supervised child (training/supervisor.py): a crash restarts "
+        "with jittered backoff into --resume, a live but hung child (no heartbeat progress) "
+        "is killed and resumed, and a crash loop opens a circuit breaker; the last stdout "
+        "line is the train_supervise/v1 record")
+    g.add_argument("--supervise", action="store_true",
+                   help="spawn this command line as a watched child (with "
+                        "--heartbeat_seconds on) and restart it into --resume on a crash "
+                        "or a hang")
+    g.add_argument("--watch_interval_s", type=float, default=1.0,
+                   help="supervisor poll cadence")
+    g.add_argument("--hang_timeout_s", type=float, default=600.0,
+                   help="a live child whose heartbeat shows no progress for this long is "
+                        "killed and resumed")
+    g.add_argument("--start_grace_s", type=float, default=900.0,
+                   help="grace after each (re)spawn before the hang verdict applies")
+    g.add_argument("--train_restart_backoff_s", type=float, default=1.0,
+                   help="base of the jittered exponential backoff between restarts "
+                        "(capped at 60 s)")
+    g.add_argument("--train_circuit_max_restarts", type=int, default=5,
+                   help="restarts inside --train_circuit_window_s after which the "
+                        "supervisor stops and exits nonzero")
+    g.add_argument("--train_circuit_window_s", type=float, default=3600.0,
+                   help="sliding window of --train_circuit_max_restarts")
 
 
 def add_restore_args(p) -> None:
@@ -144,6 +195,7 @@ def model_config_from_args(args: argparse.Namespace) -> ModelConfig:
         num_layers=args.num_gnn_layers,
         hidden=args.num_gnn_hidden_channels,
         num_heads=args.num_gnn_attention_heads,
+        node_count_limit=args.node_count_limit,
         dropout_rate=args.dropout_rate,
         attention_mode=args.attention_mode,
         disable_geometric_mode=args.disable_geometric_mode,
@@ -152,8 +204,9 @@ def model_config_from_args(args: argparse.Namespace) -> ModelConfig:
     decoder = DecoderConfig(num_chunks=args.num_interact_layers,
                             num_channels=args.num_interact_hidden_channels,
                             use_attention=args.use_interact_attention,
-                            dropout_rate=args.dropout_rate)
-    deeplab = DeepLabConfig(dropout_rate=args.dropout_rate,
+                            dropout_rate=args.dropout_rate, remat=args.remat,
+                            remat_policy=args.remat_policy)
+    deeplab = DeepLabConfig(dropout_rate=args.dropout_rate, remat=args.remat,
                             output_stride=args.deeplab_output_stride,
                             encoder_name=args.deeplab_encoder)
     return ModelConfig(gnn=gnn, decoder=decoder, deeplab=deeplab,
@@ -173,10 +226,14 @@ def optim_config_from_args(args: argparse.Namespace) -> OptimConfig:
 def loop_config_from_args(args: argparse.Namespace) -> LoopConfig:
     return LoopConfig(num_epochs=args.num_epochs, patience=args.patience,
                       min_delta=args.min_delta, seed=args.seed,
-                      weight_classes=args.weight_classes, log_every=args.log_every,
+                      weight_classes=args.weight_classes,
+                      pos_prob_threshold=args.pos_prob_threshold, log_every=args.log_every,
                       metric_to_track=args.metric_to_track, ckpt_dir=args.ckpt_dir,
                       swa=args.stochastic_weight_avg,
                       max_time_seconds=args.max_hours * 3600 if args.max_hours else None,
                       preemption_guard=not args.no_preemption_guard,
                       save_every_steps=args.save_every_steps,
-                      async_checkpoint=not args.sync_checkpoint)
+                      async_checkpoint=not args.sync_checkpoint,
+                      nonfinite_guard=not args.no_nonfinite_guard,
+                      max_bad_steps=args.max_bad_steps,
+                      heartbeat_seconds=args.heartbeat_seconds)

@@ -22,6 +22,8 @@ from typing import Dict, Optional
 
 from deepinteract_tpu_torch.cli.args import (add_data_args, add_training_args, build_parser,
                                              loop_config_from_args, model_config_from_args)
+from deepinteract_tpu_torch.cli.import_checkpoint import (imported_model,
+                                                          load_reference_checkpoint)
 from deepinteract_tpu_torch.data.datasets import PICPDataModule
 from deepinteract_tpu_torch.data.loader import BucketedLoader
 from deepinteract_tpu_torch.device import resolve_device
@@ -29,11 +31,6 @@ from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.training.checkpoint import CheckpointConfig, Checkpointer
 from deepinteract_tpu_torch.training.loop import Trainer
-
-REFERENCE_CHECKPOINT_REFUSAL = (
-    "{path} is a reference torch/Lightning checkpoint; the port cannot read one yet: "
-    "importing it is queue 1 item 15 of ROADMAP.md (the port of training/import_torch.py)")
-
 
 def reference_checkpoint(path: str) -> Optional[str]:
     """The reference checkpoint at or inside ``path`` (a ``.ckpt``/``.pt``
@@ -65,6 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--csv_out", type=str, default=None,
                         help="per-target CSV path (default: the reference's name for "
                              "the test set)")
+    parser.add_argument("--unsafe-load", action="store_true",
+                        help="allow a full (code-executing) pickle load of a reference "
+                             "checkpoint the safe weights_only path rejects; trusted files only")
     return parser.parse_args(argv)
 
 
@@ -74,9 +74,6 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
     ckpt_dir = args.ckpt_name or args.ckpt_dir
     if not os.path.exists(ckpt_dir):
         raise SystemExit(f"test: no checkpoint at {ckpt_dir!r}")
-    ref = reference_checkpoint(ckpt_dir)
-    if ref is not None:
-        raise SystemExit("test: " + REFERENCE_CHECKPOINT_REFUSAL.format(path=ref))
     model_cfg = model_config_from_args(args)
     dm = PICPDataModule(dips_root=args.dips_root, db5_root=args.db5_root,
                         casp_capri_root=args.casp_capri_root,
@@ -85,10 +82,18 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
                         input_indep=args.input_indep, split_ver=args.split_ver, seed=args.seed)
     test_loader = BucketedLoader(dm.test, batch_size=args.eval_batch_size)
     set_backend_precision(model_cfg.gnn.compute_dtype)
-    trainer = Trainer(DeepInteract(model_cfg).to(device), loop_config_from_args(args))
+    ref = reference_checkpoint(ckpt_dir)
+    if ref is None:
+        model = DeepInteract(model_cfg)
+    else:
+        sd, _ = load_reference_checkpoint(ref, args.unsafe_load)
+        model = imported_model(sd, model_cfg,
+                               log=lambda s: print(f"imported reference checkpoint {ref}: {s}"))
+    trainer = Trainer(model.to(device), loop_config_from_args(args))
     state = trainer.init_state()
-    Checkpointer(CheckpointConfig(directory=ckpt_dir, metric_to_track=args.metric_to_track)
-                 ).restore(state, which="best", partial=True)
+    if ref is None:
+        Checkpointer(CheckpointConfig(directory=ckpt_dir, metric_to_track=args.metric_to_track)
+                     ).restore(state, which="best", partial=True)
     return trainer.evaluate(state, test_loader, stage="test", targets=test_loader.targets(),
                             csv_path=csv_path_of(args))
 

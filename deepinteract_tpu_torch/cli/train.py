@@ -10,21 +10,32 @@ cpu`` it refuses.
         [--weight_classes] [--accumulate_grad_batches K] [--patience P] \\
         [--ckpt_dir DIR] [--resume] [--save_every_steps N] [--sync_checkpoint] \\
         [--fine_tune --ckpt_name SRC] [--stochastic_weight_avg] [--find_lr] \\
-        [--max_hours H] [--data_skip_budget S] [--test_csv PATH] [--device cpu]
+        [--max_hours H] [--data_skip_budget S] [--test_csv PATH] [--remat \\
+        [--remat_policy full|convs]] [--heartbeat_seconds S] [--deterministic] \\
+        [--supervise [--hang_timeout_s T] ...] [--device cpu]
 
 Checkpoints go to ``--ckpt_dir`` (``best/``, ``last/``, ``mid/``). A
 preempted run (SIGTERM, SIGINT) flushes its newest checkpoint, prints
 "training preempted (...)" and exits 0; rerun it with ``--resume``. The
 last line of a finished run's output is the test split's metrics as a
 dict.
+
+``--supervise`` runs the same command line (without the supervisor's
+flags) as a watched child (``training/supervisor.py``): a crash or a hang
+restarts it into ``--resume``, a crash loop opens a circuit breaker, and
+the last stdout line is the ``train_supervise/v1`` record.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 from itertools import islice
+
+import torch
 
 from deepinteract_tpu_torch.cli.args import (add_data_args, add_training_args, build_parser,
                                              loop_config_from_args, model_config_from_args,
@@ -55,7 +66,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(args: argparse.Namespace):
     """Train as ``args`` say and evaluate the test split. Returns (history,
     test metrics); a preemption raises ``TrainingPreempted`` once the
-    newest checkpoint is flushed."""
+    newest checkpoint is flushed. ``--deterministic`` holds for this call
+    only."""
+    if not args.deterministic:
+        return _run(args)
+    # cuBLAS reads the workspace setting when its first handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _run(args)
+    finally:
+        torch.use_deterministic_algorithms(previous)
+
+
+def _run(args: argparse.Namespace):
     device = resolve_device(args.device)
 
     model_cfg = model_config_from_args(args)
@@ -93,8 +118,36 @@ def run(args: argparse.Namespace):
     return history, test_metrics
 
 
+def _supervise_main(args: argparse.Namespace, argv) -> int:
+    """``--supervise``: run this command line (supervisor flags stripped,
+    ``--heartbeat_seconds`` forced on) as a watched child; print the
+    ``train_supervise/v1`` record as the last stdout line."""
+    from deepinteract_tpu_torch.training.supervisor import (SuperviseConfig,
+                                                            TrainingSupervisor,
+                                                            strip_supervisor_flags,
+                                                            train_child_cmd_fn)
+
+    heartbeat_seconds = args.heartbeat_seconds if args.heartbeat_seconds > 0 else 5.0
+    supervisor = TrainingSupervisor(
+        train_child_cmd_fn(strip_supervisor_flags(list(argv)), heartbeat_seconds),
+        SuperviseConfig(heartbeat_path=os.path.join(args.ckpt_dir, "obs", "heartbeat_p0.json"),
+                        state_dir=args.ckpt_dir, heartbeat_seconds=heartbeat_seconds,
+                        poll_interval_s=args.watch_interval_s,
+                        hang_timeout_s=args.hang_timeout_s, start_grace_s=args.start_grace_s,
+                        restart_backoff_s=args.train_restart_backoff_s,
+                        circuit_max_restarts=args.train_circuit_max_restarts,
+                        circuit_window_s=args.train_circuit_window_s),
+        log=lambda line: print(line, flush=True))
+    rc = supervisor.run()
+    print(json.dumps(supervisor.contract()), flush=True)
+    return rc
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.supervise:
+        # The parent stays a plain control plane: the child owns the device.
+        return _supervise_main(args, sys.argv[1:] if argv is None else argv)
     try:
         resolve_device(args.device)
     except RuntimeError as err:

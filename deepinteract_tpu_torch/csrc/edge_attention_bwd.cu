@@ -27,11 +27,17 @@
 // matmul and accumulates dq/dk/dv in output blocks revisited by a
 // sequential edge-block grid; neither carries over. Here the work splits
 // by who owns the sum, so no block writes another block's output and no
-// atomics are needed. Both passes use edge_attention_common.cuh's layout:
-// one block of 8 warps per (graph, node, 32-lane row chunk), the node's
-// edges split into 8 contiguous slices, four edges' loads in flight per
-// warp (two in pass A at 8 elements per lane, where each edge holds six
-// rows), slices combined in warp order.
+// atomics are needed. Pass A sums over heads and uses
+// edge_attention_common.cuh's head layouts: for heads of up to 32 vector
+// lanes (warp heads), one block of 8 warps per (graph, node, row chunk of
+// whole heads), the node's edges split into 8 contiguous slices, four
+// edges' loads in flight per warp (two at 8 elements per lane, where each
+// edge holds six rows), slices combined in warp order; for wider heads
+// (block heads, D up to 4096), one block per (graph, node, head) walking
+// the edges two at a time (one at 8 or more elements a thread), each
+// edge's three head sums through block_sum. Pass B sums over no head, so
+// it cuts the row into plain 32-lane chunks of VEC-element lanes, whatever
+// the head dim.
 //   Pass A, per source node i. Its K out-edges are contiguous rows of pe,
 //   de, nbr and mask. Each warp walks its slots, gathers q, h, z and dh at
 //   dst, recomputes a, c, s, sum_pre and w, writes dpe[e], adds da * q[dst]
@@ -60,6 +66,8 @@ using namespace di;
 template <int VEC>
 constexpr int kUnrollSrc = VEC >= 8 ? 2 : 4;
 constexpr int kUnrollDst = 4;
+template <int ITEMS>
+constexpr int kUnrollBlock = ITEMS >= 8 ? 1 : 2;
 
 template <typename T, int VEC, bool kHasDe>
 __global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_kernel(
@@ -68,7 +76,7 @@ __global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_kernel(
     const float* __restrict__ mask, const float* __restrict__ h,
     const float* __restrict__ z, const float* __restrict__ dh,
     const T* __restrict__ de, T* __restrict__ dk, T* __restrict__ dv,
-    T* __restrict__ dpe, float* __restrict__ dsum, int num_nodes, int knn, int hd,
+    T* __restrict__ dpe, float* __restrict__ dsum, int num_nodes, int knn, int heads,
     int head_dim, int head_lanes, int chunks, float inv_sqrt_d) {
   constexpr int U = kUnrollSrc<VEC>;
   __shared__ float scratch[kWarps * 2 * VEC * 32];
@@ -76,12 +84,12 @@ __global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_kernel(
   const int chunk = blockIdx.x % chunks;
   const int src = blockIdx.x / chunks;
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int off = (chunk * 32 + lane) * VEC;
-  const bool active = off < hd;
-  const bool head_leader = active && lane % head_lanes == 0;
-  const int heads = hd / head_dim;
-  const int head = off / head_dim;
+  const int hd = heads * head_dim;
+  const WarpLane wl = warp_lane<VEC>(chunk, heads, head_dim, head_lanes);
+  const int off = wl.off;
+  const bool active = wl.active;
+  const bool head_leader = wl.leader;
+  const int head = wl.head;
 
   const int64_t node_row0 = (int64_t)b * num_nodes;
   const int64_t edge_row0 = (int64_t)b * num_nodes * knn + (int64_t)src * knn;
@@ -166,12 +174,100 @@ __global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_kernel(
   }
 }
 
+template <typename T, int ITEMS, bool kHasDe>
+__global__ void __launch_bounds__(kThreads) edge_attention_bwd_src_block_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ pe, const int32_t* __restrict__ nbr,
+    const float* __restrict__ mask, const float* __restrict__ h,
+    const float* __restrict__ z, const float* __restrict__ dh,
+    const T* __restrict__ de, T* __restrict__ dk, T* __restrict__ dv,
+    T* __restrict__ dpe, float* __restrict__ dsum, int num_nodes, int knn, int heads,
+    int head_dim, float inv_sqrt_d) {
+  constexpr int U = kUnrollBlock<ITEMS>;
+  __shared__ float red[kWarps * 3 * U];
+
+  const int head = blockIdx.x % heads;
+  const int src = blockIdx.x / heads;
+  const int b = blockIdx.y;
+  const int hd = heads * head_dim;
+  const int tid = threadIdx.x;
+  const int base = head * head_dim + tid;  // element i of this thread: base + i * kThreads
+  const int64_t node_row0 = (int64_t)b * num_nodes;
+  const int64_t edge_row0 = (int64_t)b * num_nodes * knn + (int64_t)src * knn;
+  const int64_t src_off = (node_row0 + src) * hd + base;
+
+  float kv[ITEMS], vv[ITEMS], dkv[ITEMS] = {}, dvv[ITEMS] = {};
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const bool own = tid + i * kThreads < head_dim;
+    kv[i] = own ? to_f32(k[src_off + i * kThreads]) : 0.0f;
+    vv[i] = own ? to_f32(v[src_off + i * kThreads]) : 0.0f;
+  }
+
+  for (int slot = 0; slot < knn; slot += U) {
+    // Per edge u: the head sums of s, h * dnum and dnum * v (sums[3u..3u+2]).
+    float m[U], sums[3 * U], qd[U][ITEMS], pv[U][ITEMS], dnum[U][ITEMS], dev[U][ITEMS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      m[u] = sums[3 * u] = sums[3 * u + 1] = sums[3 * u + 2] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) qd[u][i] = pv[u][i] = dnum[u][i] = dev[u][i] = 0.0f;
+      if (slot + u < knn) {  // block-uniform
+        const int64_t edge = edge_row0 + slot + u;
+        m[u] = mask[edge];
+        const int64_t dst_off = (node_row0 + nbr[edge]) * hd + base;
+        const float rz = 1.0f / (z[dst_off - tid] + kEps);
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) {
+          if (tid + i * kThreads >= head_dim) break;
+          qd[u][i] = to_f32(q[dst_off + i * kThreads]);
+          pv[u][i] = to_f32(pe[edge * hd + base + i * kThreads]);
+          if (kHasDe) dev[u][i] = to_f32(de[edge * hd + base + i * kThreads]);
+          dnum[u][i] = dh[dst_off + i * kThreads] * rz;
+          sums[3 * u] += clip(kv[i] * qd[u][i] * inv_sqrt_d) * pv[u][i];
+          sums[3 * u + 1] += h[dst_off + i * kThreads] * dnum[u][i];
+          sums[3 * u + 2] += dnum[u][i] * vv[i];
+        }
+      }
+    }
+    block_sum(sums, red);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (slot + u >= knn) break;
+      const int64_t edge = edge_row0 + slot + u;
+      const float sum_pre = sums[3 * u];
+      const float w = expf(clip(sum_pre)) * m[u];
+      const float dw = sums[3 * u + 2] - sums[3 * u + 1];
+      const float ds_head = inside_clip(sum_pre) ? dw * w : 0.0f;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        if (tid + i * kThreads >= head_dim) break;
+        const float a = kv[i] * qd[u][i] * inv_sqrt_d;
+        float ds = ds_head;
+        if (kHasDe) ds += dev[u][i] * m[u];
+        dpe[edge * hd + base + i * kThreads] = from_f32<T>(ds * clip(a));
+        const float da = inside_clip(a) ? ds * pv[u][i] * inv_sqrt_d : 0.0f;
+        dkv[i] += da * qd[u][i];
+        dvv[i] += w * dnum[u][i];
+      }
+      if (threadIdx.x == 0) dsum[edge * heads + head] = ds_head;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    if (tid + i * kThreads >= head_dim) break;
+    dk[src_off + i * kThreads] = from_f32<T>(dkv[i]);
+    dv[src_off + i * kThreads] = from_f32<T>(dvv[i]);
+  }
+}
+
 template <typename T, int VEC, bool kHasDe>
 __global__ void __launch_bounds__(kThreads) edge_attention_bwd_dst_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ pe,
     const int32_t* __restrict__ in_ptr, const int32_t* __restrict__ in_eid,
     const float* __restrict__ mask, const float* __restrict__ dsum,
-    const T* __restrict__ de, T* __restrict__ dq, int num_nodes, int knn, int hd,
+    const T* __restrict__ de, T* __restrict__ dq, int num_nodes, int knn, int heads,
     int head_dim, int chunks, float inv_sqrt_d) {
   __shared__ float scratch[kWarps * VEC * 32];
 
@@ -179,9 +275,9 @@ __global__ void __launch_bounds__(kThreads) edge_attention_bwd_dst_kernel(
   const int dst = blockIdx.x / chunks;
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int off = (chunk * 32 + lane) * VEC;
+  const int hd = heads * head_dim;
+  const int off = (chunk * 32 + lane) * VEC;  // a plain row chunk: VEC divides head_dim
   const bool active = off < hd;
-  const int heads = hd / head_dim;
   const int head = off / head_dim;
 
   const int64_t node_row0 = (int64_t)b * num_nodes;
@@ -244,27 +340,46 @@ int launch_passes(const void* q, const void* k, const void* v, const void* pe,
   const int hd = heads * head_dim;
   const void* const tp[] = {q, k, v, pe, de, dq, dk, dv, dpe};
   const void* const fp[] = {h, z, dh};
+  const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
+  const auto qp = static_cast<const T*>(q), kp = static_cast<const T*>(k),
+             vp = static_cast<const T*>(v), pep = static_cast<const T*>(pe),
+             dep = static_cast<const T*>(de);
+  const auto nbrp = static_cast<const int32_t*>(nbr), ptr = static_cast<const int32_t*>(in_ptr),
+             eid = static_cast<const int32_t*>(in_eid);
+  const auto mp = static_cast<const float*>(mask), hp = static_cast<const float*>(h),
+             zp = static_cast<const float*>(z), dhp = static_cast<const float*>(dh);
+  const auto dqp = static_cast<T*>(dq), dkp = static_cast<T*>(dk), dvp = static_cast<T*>(dv),
+             dpep = static_cast<T*>(dpe);
+  const auto dsp = static_cast<float*>(dsum);
+
+  // Pass A, in the head layout.
+  const HeadLayout lay = head_layout<T>(heads, head_dim, tp, fp);
+  const dim3 grid_a(num_nodes * lay.chunks, batch);
+  const int err = lay.items > 0
+      ? dispatch_items(lay.items, [&](auto ic) {
+          constexpr int ITEMS = decltype(ic)::value;
+          edge_attention_bwd_src_block_kernel<T, ITEMS, kHasDe><<<grid_a, kThreads, 0, stream>>>(
+              qp, kp, vp, pep, nbrp, mp, hp, zp, dhp, dep, dkp, dvp, dpep, dsp, num_nodes, knn,
+              heads, head_dim, inv_sqrt_d);
+          return static_cast<int>(cudaGetLastError());
+        })
+      : dispatch_vec<T>(lay.vec, [&](auto vc) {
+          constexpr int VEC = decltype(vc)::value;
+          edge_attention_bwd_src_kernel<T, VEC, kHasDe><<<grid_a, kThreads, 0, stream>>>(
+              qp, kp, vp, pep, nbrp, mp, hp, zp, dhp, dep, dkp, dvp, dpep, dsp, num_nodes, knn,
+              heads, head_dim, lay.head_lanes, lay.chunks, inv_sqrt_d);
+          return static_cast<int>(cudaGetLastError());
+        });
+  if (err != 0) return err;
+
+  // Pass B, in plain row chunks.
   const int vec = pick_vec<T>(hd, head_dim, tp, fp);
   const int chunks = (hd / vec + 31) / 32;
-  const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
-  const dim3 grid(num_nodes * chunks, batch);
+  const dim3 grid_b(num_nodes * chunks, batch);
   return dispatch_vec<T>(vec, [&](auto vc) {
     constexpr int VEC = decltype(vc)::value;
-    edge_attention_bwd_src_kernel<T, VEC, kHasDe><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(pe), static_cast<const int32_t*>(nbr),
-        static_cast<const float*>(mask), static_cast<const float*>(h),
-        static_cast<const float*>(z), static_cast<const float*>(dh),
-        static_cast<const T*>(de), static_cast<T*>(dk), static_cast<T*>(dv),
-        static_cast<T*>(dpe), static_cast<float*>(dsum), num_nodes, knn, hd, head_dim,
-        head_dim / VEC, chunks, inv_sqrt_d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    edge_attention_bwd_dst_kernel<T, VEC, kHasDe><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(pe),
-        static_cast<const int32_t*>(in_ptr), static_cast<const int32_t*>(in_eid),
-        static_cast<const float*>(mask), static_cast<const float*>(dsum),
-        static_cast<const T*>(de), static_cast<T*>(dq), num_nodes, knn, hd, head_dim, chunks,
+    edge_attention_bwd_dst_kernel<T, VEC, kHasDe><<<grid_b, kThreads, 0, stream>>>(
+        qp, kp, pep, ptr, eid, mp, dsp, dep, dqp, num_nodes, knn, heads, head_dim, chunks,
         inv_sqrt_d);
     return static_cast<int>(cudaGetLastError());
   });
@@ -292,8 +407,8 @@ int launch(const void* q, const void* k, const void* v, const void* pe, const vo
 // is_bf16 == 0, else bfloat16), nbr [B, N*K] int32, mask [B, N*K] float32,
 // in_ptr [B, N+1] and in_eid [B, N*K] int32 (the in-edge CSR), h, z and dh
 // [B, N, H*D] float32, dsum [B, N*K, H] float32 (written by pass A, read by
-// pass B). de may be null. Requires H*D <= 1024 and head_dim a power of two
-// <= 32 (the wrapper checks). Launches pass A then pass B on `stream` and
+// pass B). de may be null. Requires head_dim <= 4096 (the wrapper checks
+// H*D <= 4096). Launches pass A then pass B on `stream` and
 // returns the first cudaGetLastError() that is not cudaSuccess, else 0.
 extern "C" int di_edge_attention_bwd(const void* q, const void* k, const void* v,
                                      const void* pe, const void* nbr, const void* mask,

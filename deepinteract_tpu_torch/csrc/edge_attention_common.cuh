@@ -2,12 +2,24 @@
 //
 // Layout of the work. A node row of H*D elements is cut into vector lanes of
 // VEC consecutive elements (one load or store of at most 16 bytes each);
-// a warp holds 32 such lanes, one row chunk. VEC divides the head dim D (a
-// power of two <= 32), so a head's D / VEC lanes sit in one warp and its sums
-// are __shfl_xor trees over them. A block of kWarps warps owns one (graph,
-// node, chunk) and splits that node's edge list into kWarps contiguous
-// slices, one per warp; the warps' partial sums are combined through shared
-// memory in warp order, so every sum has a fixed order and no atomics.
+// VEC is a power of two that divides the head dim D, so a lane's elements
+// belong to one head. A head's D / VEC lanes are summed in one of two
+// layouts (head_layout), whichever holds the head inside one block:
+//   warp heads: the head's lanes, padded to the next power of two P <= 32,
+//   sit in one warp, which holds 32 / P whole heads (a "row chunk"); a
+//   head's sum is a __shfl_xor tree over its P lanes, the padding lanes
+//   adding zeros. A block of kWarps warps owns one (graph, node, chunk)
+//   and splits that node's edge list into kWarps contiguous slices, one per
+//   warp; the warps' partial sums are combined through shared memory in
+//   warp order.
+//   block heads (P > 32: D > 32 * VEC): a block of kThreads threads owns one
+//   (graph, node, head), each thread ITEMS single elements of the head
+//   (thread t: elements t, t + kThreads, ...). The block walks the node's
+//   edges a few at a time; a head's sum is each thread's partial sum, a
+//   __shfl_xor tree in each warp, then the warps' sums in warp order
+//   through shared memory (block_sum).
+// Every sum has a fixed order and there are no atomics, so both layouts are
+// deterministic from run to run.
 
 #pragma once
 
@@ -84,7 +96,8 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&x)[VE
 }
 
 // Sum over a head: this lane's VEC elements, then the head's `head_lanes`
-// lanes (a power of two). Every lane of the warp must call it.
+// lanes (a power of two, padding included). Every lane of the warp must call
+// it; every lane of a head gets the same value.
 template <int VEC>
 __device__ __forceinline__ float head_sum(const float (&x)[VEC], int head_lanes) {
   float s = x[0];
@@ -123,6 +136,52 @@ __device__ __forceinline__ void combine_warps(float (&acc)[N], float* scratch) {
   }
 }
 
+// Sums each x[i] over the whole block; every thread gets the same value, in
+// a fixed order (lanes by a __shfl_xor tree, then warps 0, 1, ...).
+// `red` holds kWarps * N floats of shared memory. Every thread of the block
+// must call it.
+template <int N>
+__device__ __forceinline__ void block_sum(float (&x)[N], float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    for (int step = 16; step > 0; step >>= 1) x[i] += __shfl_xor_sync(kFull, x[i], step);
+    if (lane == 0) red[warp * N + i] = x[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = red[i];
+    for (int w = 1; w < kWarps; ++w) s += red[w * N + i];
+    x[i] = s;
+  }
+  __syncthreads();  // `red` may be written again
+}
+
+// Where a lane of the warp-heads layout sits: its head, the offset of its
+// first element in the row, whether it holds elements (padding lanes and
+// lanes past the last head do not), and whether it is its head's first lane.
+struct WarpLane {
+  int head;
+  int off;
+  bool active;
+  bool leader;
+};
+
+template <int VEC>
+__device__ __forceinline__ WarpLane warp_lane(int chunk, int heads, int head_dim,
+                                              int head_lanes) {
+  const int lane = threadIdx.x & 31;
+  const int j = lane % head_lanes;
+  WarpLane w;
+  w.head = chunk * (32 / head_lanes) + lane / head_lanes;
+  w.off = w.head * head_dim + j * VEC;
+  w.active = w.head < heads && j * VEC < head_dim;
+  w.leader = w.active && j == 0;
+  return w;
+}
+
 inline bool aligned_to(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -135,7 +194,7 @@ template <typename T, size_t NT, size_t NF>
 int pick_vec(int hd, int head_dim, const void* const (&tp)[NT], const void* const (&fp)[NF]) {
   int vec = 16 / (int)sizeof(T);
   for (; vec > 1; vec >>= 1) {
-    if (vec > head_dim || hd / vec < 32) continue;
+    if (head_dim % vec != 0 || hd / vec < 32) continue;
     bool ok = true;
     const size_t tb = sizeof(T) * vec < 16 ? sizeof(T) * vec : 16;
     const size_t fb = 4 * vec < 16 ? 4 * vec : 16;
@@ -144,6 +203,54 @@ int pick_vec(int hd, int head_dim, const void* const (&tp)[NT], const void* cons
     if (ok) break;
   }
   return vec;
+}
+
+// How a kernel that sums over heads lays them out (see the top of this file).
+// items == 0: warp heads, VEC = vec, head_lanes = P, grid.x = nodes * chunks.
+// items > 0: block heads, ITEMS = items (a power of two, kThreads * items >=
+// D), grid.x = nodes * heads.
+struct HeadLayout {
+  int vec;
+  int head_lanes;
+  int chunks;
+  int items;
+};
+
+constexpr int kMaxItems = 16;  // block heads take D <= kThreads * kMaxItems = 4096
+
+template <typename T, size_t NT, size_t NF>
+HeadLayout head_layout(int heads, int head_dim, const void* const (&tp)[NT],
+                       const void* const (&fp)[NF]) {
+  const int vec = pick_vec<T>(heads * head_dim, head_dim, tp, fp);
+  int lanes = 1;
+  while (lanes < head_dim / vec) lanes <<= 1;
+  if (lanes <= 32) {
+    const int per_chunk = 32 / lanes;
+    return {vec, lanes, (heads + per_chunk - 1) / per_chunk, 0};
+  }
+  int items = 1;
+  while (items * kThreads < head_dim) items <<= 1;
+  return {1, 0, heads, items};
+}
+
+// Calls f(std::integral_constant<int, ITEMS>) for the runtime `items` (1, 2,
+// 4, 8 or 16) and returns its result.
+template <typename F>
+int dispatch_items(int items, F&& f) {
+  switch (items) {
+    case 1:
+      return f(std::integral_constant<int, 1>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Calls f(std::integral_constant<int, VEC>) for the runtime `vec` (1, 2, 4,

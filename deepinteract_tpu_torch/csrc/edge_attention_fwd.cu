@@ -24,9 +24,11 @@
 // shared by every GT layer and by K2. So no block searches for its edges:
 // the work is linear in the edges, where a scan of nbr per node was
 // O(N^2 K).
-//   One block of 8 warps per (graph, destination, 32-lane row chunk). Each
-//   warp takes a contiguous slice of the destination's in-edges (about K/8
-//   of them), loads their ids in one coalesced read and broadcasts them with
+//   Heads of up to 32 vector lanes (edge_attention_common.cuh's warp heads;
+//   the flagship's D=32 and every D <= 32 * VEC): one block of 8 warps per
+//   (graph, destination, row chunk of whole heads). Each warp takes a
+//   contiguous slice of the destination's in-edges (about K/8 of them),
+//   loads their ids in one coalesced read and broadcasts them with
 //   __shfl_sync, and keeps four edges' gathers of k[src], v[src] and pe[e]
 //   in flight at once: vector loads of up to 16 bytes per lane, q[dst] in
 //   registers. It writes e_out[e] (each edge has exactly one destination, so
@@ -35,6 +37,11 @@
 //   eight partial sums are combined in warp order through shared memory.
 //   Eight slices give a flagship graph (N=256) 2,048 warps, enough for the
 //   132 SMs, and a node's latency chain is one round of gathers.
+//   Wider heads (block heads, D up to 4096): one block per (graph,
+//   destination, head), its threads across the head's elements, walking the
+//   in-edges two at a time (one where a thread holds 8 or more elements);
+//   each edge's head sum goes through block_sum. This layout exists for
+//   head dims the JAX package runs but the flagship does not use.
 // Every sum has a fixed order (ascending edge id within a slice, slices in
 // order): no atomics, deterministic from run to run. A destination with no
 // in-edges ends with h = 0 and z = 0. Every nbr entry must lie in [0, N)
@@ -48,6 +55,8 @@ namespace {
 using namespace di;
 
 constexpr int kUnroll = 4;  // a warp's in-edges in flight
+template <int ITEMS>
+constexpr int kUnrollBlock = ITEMS >= 8 ? 1 : 2;  // a block's in-edges in flight
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads) edge_attention_fwd_kernel(
@@ -55,15 +64,18 @@ __global__ void __launch_bounds__(kThreads) edge_attention_fwd_kernel(
     const T* __restrict__ pe, const int32_t* __restrict__ in_ptr,
     const int32_t* __restrict__ in_eid, const float* __restrict__ mask,
     float* __restrict__ h_out, T* __restrict__ e_out, float* __restrict__ z_out,
-    int num_nodes, int knn, int hd, int head_lanes, int chunks, float inv_sqrt_d) {
+    int num_nodes, int knn, int heads, int head_dim, int head_lanes, int chunks,
+    float inv_sqrt_d) {
   __shared__ float scratch[kWarps * (VEC + 1) * 32];
 
   const int chunk = blockIdx.x % chunks;
   const int dst = blockIdx.x / chunks;
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int off = (chunk * 32 + lane) * VEC;  // first element of this lane
-  const bool active = off < hd;
+  const int hd = heads * head_dim;
+  const WarpLane wl = warp_lane<VEC>(chunk, heads, head_dim, head_lanes);
+  const int off = wl.off;  // first element of this lane
+  const bool active = wl.active;
 
   const int64_t node_row0 = (int64_t)b * num_nodes;
   const int64_t edge_row0 = (int64_t)b * num_nodes * knn;
@@ -128,25 +140,107 @@ __global__ void __launch_bounds__(kThreads) edge_attention_fwd_kernel(
   }
 }
 
+template <typename T, int ITEMS>
+__global__ void __launch_bounds__(kThreads) edge_attention_fwd_block_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ pe, const int32_t* __restrict__ in_ptr,
+    const int32_t* __restrict__ in_eid, const float* __restrict__ mask,
+    float* __restrict__ h_out, T* __restrict__ e_out, float* __restrict__ z_out,
+    int num_nodes, int knn, int heads, int head_dim, float inv_sqrt_d) {
+  constexpr int U = kUnrollBlock<ITEMS>;
+  __shared__ float red[kWarps * U];
+
+  const int head = blockIdx.x % heads;
+  const int dst = blockIdx.x / heads;
+  const int b = blockIdx.y;
+  const int hd = heads * head_dim;
+  const int64_t node_row0 = (int64_t)b * num_nodes;
+  const int64_t edge_row0 = (int64_t)b * num_nodes * knn;
+  const int32_t* ptr = in_ptr + (int64_t)b * (num_nodes + 1);
+  const int beg = ptr[dst], end = ptr[dst + 1];
+  const int tid = threadIdx.x;
+  const int base = head * head_dim + tid;  // element i of this thread: base + i * kThreads
+
+  float qv[ITEMS], acc[ITEMS] = {};
+  float zsum = 0.0f;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const bool own = tid + i * kThreads < head_dim;
+    qv[i] = own ? to_f32(q[(node_row0 + dst) * hd + base + i * kThreads]) : 0.0f;
+  }
+
+  for (int e0 = beg; e0 < end; e0 += U) {
+    float m[U], part[U], vv[U][ITEMS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      m[u] = part[u] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) vv[u][i] = 0.0f;
+      if (e0 + u < end) {  // block-uniform
+        const int eid = in_eid[edge_row0 + e0 + u];
+        m[u] = mask[edge_row0 + eid];
+        const int64_t src_off = (node_row0 + eid / knn) * hd + base;
+        const int64_t edge_off = (edge_row0 + eid) * hd + base;
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) {
+          if (tid + i * kThreads >= head_dim) break;
+          const float s = clip(to_f32(k[src_off + i * kThreads]) * qv[i] * inv_sqrt_d) *
+                          to_f32(pe[edge_off + i * kThreads]);
+          e_out[edge_off + i * kThreads] = from_f32<T>(s * m[u]);
+          part[u] += s;
+          vv[u][i] = to_f32(v[src_off + i * kThreads]);
+        }
+      }
+    }
+    block_sum(part, red);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (e0 + u >= end) break;
+      const float w = expf(clip(part[u])) * m[u];
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) acc[i] += w * vv[u][i];
+      zsum += w;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    if (tid + i * kThreads >= head_dim) break;
+    const int64_t at = (node_row0 + dst) * hd + base + i * kThreads;
+    h_out[at] = acc[i] / (zsum + kEps);
+    z_out[at] = zsum;
+  }
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pe, const void* in_ptr,
            const void* in_eid, const void* mask, void* h, void* e_out, void* z, int batch,
            int num_nodes, int knn, int heads, int head_dim, cudaStream_t stream) {
-  const int hd = heads * head_dim;
   const void* const tp[] = {q, k, v, pe, e_out};
   const void* const fp[] = {h, z};
-  const int vec = pick_vec<T>(hd, head_dim, tp, fp);
-  const int chunks = (hd / vec + 31) / 32;
+  const HeadLayout lay = head_layout<T>(heads, head_dim, tp, fp);
   const float inv_sqrt_d = (float)(1.0 / sqrt((double)head_dim));
-  const dim3 grid(num_nodes * chunks, batch);
-  return dispatch_vec<T>(vec, [&](auto vc) {
+  const dim3 grid(num_nodes * lay.chunks, batch);
+  const auto qp = static_cast<const T*>(q), kp = static_cast<const T*>(k),
+             vp = static_cast<const T*>(v), pep = static_cast<const T*>(pe);
+  const auto ptr = static_cast<const int32_t*>(in_ptr), eid = static_cast<const int32_t*>(in_eid);
+  const auto mp = static_cast<const float*>(mask);
+  const auto hp = static_cast<float*>(h), zp = static_cast<float*>(z);
+  const auto ep = static_cast<T*>(e_out);
+  if (lay.items > 0) {
+    return dispatch_items(lay.items, [&](auto ic) {
+      constexpr int ITEMS = decltype(ic)::value;
+      edge_attention_fwd_block_kernel<T, ITEMS><<<grid, kThreads, 0, stream>>>(
+          qp, kp, vp, pep, ptr, eid, mp, hp, ep, zp, num_nodes, knn, heads, head_dim,
+          inv_sqrt_d);
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
+  return dispatch_vec<T>(lay.vec, [&](auto vc) {
     constexpr int VEC = decltype(vc)::value;
     edge_attention_fwd_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(pe), static_cast<const int32_t*>(in_ptr),
-        static_cast<const int32_t*>(in_eid), static_cast<const float*>(mask),
-        static_cast<float*>(h), static_cast<T*>(e_out), static_cast<float*>(z), num_nodes,
-        knn, hd, head_dim / VEC, chunks, inv_sqrt_d);
+        qp, kp, vp, pep, ptr, eid, mp, hp, ep, zp, num_nodes, knn, heads, head_dim,
+        lay.head_lanes, lay.chunks, inv_sqrt_d);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -157,7 +251,7 @@ int launch(const void* q, const void* k, const void* v, const void* pe, const vo
 // q/k/v [B, N, H*D], pe and e_out [B, N*K, H*D] (float32 if is_bf16 == 0,
 // else bfloat16), in_ptr [B, N+1] and in_eid [B, N*K] int32 (the in-edge
 // CSR), mask [B, N*K] float32, h and z [B, N, H*D] float32. Requires
-// H*D <= 1024 and head_dim a power of two <= 32 (the wrapper checks).
+// head_dim <= 4096 (the wrapper checks H*D <= 4096).
 // Returns cudaGetLastError() after the launch.
 extern "C" int di_edge_attention_fwd(const void* q, const void* k, const void* v,
                                      const void* pe, const void* in_ptr, const void* in_eid,

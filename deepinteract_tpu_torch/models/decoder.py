@@ -5,8 +5,16 @@ formulation: instance norms take their statistics over valid pixels only,
 the padded region is zeroed before every dilated 3x3 and at every block
 output, and the logits are masked. The JAX package's default de-padded
 statistics compute the same statistics up to float association, and its
-chunk scan and remat serve XLA's compiler; neither is needed here (the
-scanned parameter layout is still accepted by ``weights.py``).
+chunk scan serves XLA's compiler; neither is needed here (the scanned
+parameter layout is still accepted by ``weights.py``).
+
+With ``remat`` every bottleneck block is rematerialized in the backward
+(:func:`remat_call`, the JAX package's ``nn.remat`` per block): under
+``remat_policy='full'`` a block keeps only its input and recomputes the
+rest; under ``'convs'`` it keeps its conv outputs too and recomputes the
+elementwise chain. Blocks hold no dropout and no running statistic, so a
+recomputation draws nothing and updates nothing. Remat applies only with
+grad enabled; eval and predict run as without it.
 
 Convolutions run NCHW on cuDNN; the public boundary keeps the JAX layout
 (NHWC logits ``[B, L1, L2, num_classes]``). The positive-class bias of the
@@ -18,11 +26,14 @@ final conv starts at -7, so positives start at p ~= 0.001. With
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deepinteract_tpu_torch.models import policy
 from deepinteract_tpu_torch.models.layers import Conv2d, Dense, Dropout
@@ -30,6 +41,7 @@ from deepinteract_tpu_torch.models.policy import OUTPUT_DTYPE, STATS_DTYPE
 from deepinteract_tpu_torch.models.stem import PairStem1x1
 
 POSITIVE_CLASS_BIAS = -7.0
+REMAT_POLICIES = ("full", "convs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +57,42 @@ class DecoderConfig:
     num_attention_heads: int = 4
     dropout_rate: float = 0.2  # on the regional attention weights
     region_size: int = 3
+    # Rematerialize each bottleneck block in the backward (remat_call).
+    remat: bool = False
+    remat_policy: str = "full"  # 'full' | 'convs'
     compute_dtype: str = "float32"
 
     def __post_init__(self):
         policy.validate_compute_dtype(self.compute_dtype)
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             f"expected one of {REMAT_POLICIES}")
 
     @property
     def dtype(self) -> torch.dtype:
         return policy.compute_dtype(self.compute_dtype)
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """The 'convs' policy: keep every convolution's output, recompute the
+    rest."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(module: nn.Module, remat_policy: str, *args):
+    """``module(*args)`` rematerialized in the backward when grad is
+    enabled (``torch.utils.checkpoint``, non-reentrant): 'full' keeps only
+    the inputs, 'convs' also the conv outputs. Without grad, a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return module(*args)
+    if remat_policy == "convs":
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_convs))
+    return checkpoint(module, *args, use_reentrant=False)
 
 
 def masked_instance_norm(x, mask, weight, bias, eps: float = 1e-6):
@@ -139,8 +179,10 @@ class DilatedResNet(nn.Module):
     ``extra_block_{i}``."""
 
     def __init__(self, channels: int, num_chunks: int, dilation_cycle: Sequence[int],
-                 use_inorm: bool, extra_blocks: bool = False):
+                 use_inorm: bool, extra_blocks: bool = False, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
+        self.remat, self.remat_policy = remat, remat_policy
         self.init_proj = Conv2d(channels, channels, 1)
         self.blocks = []
         for i in range(num_chunks):
@@ -154,7 +196,8 @@ class DilatedResNet(nn.Module):
     def forward(self, x, mask):
         x = self.init_proj(x)
         for name, _ in self.blocks:
-            x = getattr(self, name)(x, mask)
+            block = getattr(self, name)
+            x = remat_call(block, self.remat_policy, x, mask) if self.remat else block(x, mask)
         return x
 
 
@@ -212,9 +255,11 @@ class InteractionDecoder(nn.Module):
         ch = cfg.num_channels
         self.conv2d_1 = PairStem1x1(cfg.in_channels, ch)
         self.inorm_1 = InstanceNorm(ch)
-        self.base_resnet = DilatedResNet(ch, cfg.num_chunks, cfg.dilation_cycle, use_inorm=True)
+        remat = dict(remat=cfg.remat, remat_policy=cfg.remat_policy)
+        self.base_resnet = DilatedResNet(ch, cfg.num_chunks, cfg.dilation_cycle, use_inorm=True,
+                                         **remat)
         self.phase2_resnet = DilatedResNet(ch, 1, cfg.dilation_cycle, use_inorm=False,
-                                           extra_blocks=True)
+                                           extra_blocks=True, **remat)
         if cfg.use_attention:
             for name in ("mha2d_1", "mha2d_2"):
                 self.add_module(name, RegionalAttention(

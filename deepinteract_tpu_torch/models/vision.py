@@ -15,19 +15,28 @@ padding (``stem.SameConv2d``); the public boundary keeps the JAX layout
 (NHWC logits ``[B, H, W, num_classes]``). Children carry readable names
 and map the flax auto-names (``ConvNormAct_0``, ``SeparableConv_3``,
 ``Conv_0``, ...) through ``flax_names`` for ``weights.load_jax_variables``.
+With ``remat`` each ResNet block is rematerialized in the backward
+(``decoder.remat_call``, policy 'full'), as the JAX package's ``nn.remat``.
+
+Bilinear resizes are two products with interpolation matrices, one along
+each axis (:func:`resize_matrix`, ``jax.image.resize``'s weights): their
+backward is two more products, deterministic on the card, where the CUDA
+backward of ``F.interpolate`` is not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from deepinteract_tpu_torch.models import policy
-from deepinteract_tpu_torch.models.decoder import InstanceNorm
+from deepinteract_tpu_torch.models.decoder import InstanceNorm, remat_call
 from deepinteract_tpu_torch.models.layers import Conv2d, Dropout
 from deepinteract_tpu_torch.models.policy import OUTPUT_DTYPE, STATS_DTYPE
 from deepinteract_tpu_torch.models.stem import (DeepLabStemConv, PairFactors, SameConv2d,
@@ -66,6 +75,8 @@ class DeepLabConfig:
     high_res_channels: int = 48
     output_stride: int = 16
     dropout_rate: float = 0.2
+    # Rematerialize each ResNet block in the backward.
+    remat: bool = False
     compute_dtype: str = "float32"
 
     def __post_init__(self):
@@ -99,13 +110,42 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(F.pad(x, (lo_w, hi_w, lo_h, hi_h), value=float("-inf")), 3, 2)
 
 
+@functools.lru_cache(maxsize=64)
+def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size, in_size] float64 weights of ``jax.image.resize(...,
+    "bilinear")`` along one axis (``jax._src.image.scale``'s
+    ``compute_weight_mat`` at scale out/in, no translation): a triangle
+    kernel at the half-pixel sample points, widened by in/out when
+    shrinking (antialiasing), each row normalized to sum 1, and zero for
+    sample points outside the input."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(in_size)[None, :]) / kernel_scale
+    weights = np.maximum(0.0, 1.0 - x)
+    total = weights.sum(axis=1, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                       weights / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[:, None], weights, 0.0)
+
+
+def bilinear_resize(x: torch.Tensor, hw) -> torch.Tensor:
+    """``jax.image.resize(x, ..., "bilinear")`` of x [B, C, h, w] to
+    [B, C, H, W]: a product along W, then one along H."""
+    h, w = x.shape[2:]
+    mh, mw = (torch.as_tensor(resize_matrix(int(n), int(m)), dtype=x.dtype, device=x.device)
+              for n, m in ((h, hw[0]), (w, hw[1])))
+    return torch.matmul(mh, torch.matmul(x, mw.t()))
+
+
 def _masked_resize(y: torch.Tensor, mask: torch.Tensor, hw) -> torch.Tensor:
     """Bilinear upsample that ignores padded cells: resize the masked
     values and the mask, then renormalize by the resized mask (zero where
     no valid support). y: [B, C, h, w]; mask: [B, 1, h, w]."""
     m = mask.to(y.dtype)
-    num = F.interpolate(y * m, size=tuple(hw), mode="bilinear", align_corners=False)
-    den = F.interpolate(m, size=tuple(hw), mode="bilinear", align_corners=False)
+    num = bilinear_resize(y * m, hw)
+    den = bilinear_resize(m, hw)
     return torch.where(den > 1e-6, num / den.clamp(min=1e-6), torch.zeros((), dtype=y.dtype,
                                                                             device=y.device))
 
@@ -206,6 +246,7 @@ class ResNetEncoder(nn.Module):
 
     def __init__(self, cfg: DeepLabConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.stem = StemConvNorm(cfg.in_channels, cfg.stem_channels)
         block_cls = (BottleneckResBlock if ENCODER_ZOO[cfg.encoder_name][0] == "bottleneck"
                      else BasicBlock)
@@ -237,7 +278,8 @@ class ResNetEncoder(nn.Module):
                 scale *= 2
                 m = _pool_mask(mask, scale)
             for name in names:
-                x = getattr(self, name)(x, m)
+                block = getattr(self, name)
+                x = remat_call(block, "full", x, m) if self.remat else block(x, m)
             if s == 0:
                 skip = x
         return skip, m4, x, m

@@ -116,7 +116,7 @@ def edge_attention_forward(q, k, v, proj_e, nbr_idx, edge_mask):
     z = _scatter_to_dst(w, nbr_idx)                     # [B,N,H]
     h_out = wv / (z[..., None] + EPS)
     e_out = (scaled * mask[..., None, None]).to(q.dtype)
-    z_out = z[..., None].expand(b, n, h, d).reshape(b, n, h * d)
+    z_out = z[..., None].expand(b, n, h, d).reshape(b, n, h * d).contiguous()
     return h_out, e_out, z_out
 
 

@@ -19,6 +19,11 @@ Sites of the port:
 * ``train.nan_batch``    poisons every float tensor of the batch with NaN
 * ``train.sigterm``      requests preemption (a simulated SIGTERM) at that
   train batch
+* ``training.step_crash`` raises RuntimeError at that train batch: a crash
+  with a traceback, which the training supervisor restarts into --resume
+* ``training.hang``      freezes the step loop forever at that train batch
+  while the heartbeat thread keeps beating: a wedged step, which only the
+  training supervisor's watchdog (``training/supervisor.py``) ends
 * ``checkpoint.restore`` marks a checkpoint step corrupt when restore
   verifies it, driving the last-good walk (``training/checkpoint.py``)
 * ``storage.write``      raises OSError before an atomic write opens its

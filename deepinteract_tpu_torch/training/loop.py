@@ -17,8 +17,14 @@ position and reproduces the uninterrupted run. A preemption (SIGTERM, or
 the ``train.sigterm`` fault site) stops the loop before the next step,
 drains the save in flight and raises ``TrainingPreempted``. SWA averages
 the parameters of the last epochs and refreshes the batch statistics.
-Telemetry spans, the diagnostics dump and multi-device dispatch are not
-ported.
+With ``heartbeat_seconds`` a heartbeat file (``obs/heartbeat.py``) beats
+from a daemon thread, and the loop stamps its progress on every train
+step, eval batch, epoch boundary and mid-epoch save: the signal the
+training supervisor (``training/supervisor.py``) reads to tell a hung run
+from a live one. Phases run inside ``obs/spans.py`` spans (epoch, step,
+eval, checkpoint), so the heartbeat says where the run is. An abort on
+``max_bad_steps`` writes a diagnostics JSON first. Multi-device dispatch
+is not ported.
 
 Data sources are callables ``epoch -> iterable of PairedComplex`` (the
 loader re-shuffles per epoch) or plain sequences of padded batches.
@@ -26,6 +32,7 @@ loader re-shuffles per epoch) or plain sequences of padded batches.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -40,8 +47,11 @@ import torch
 from deepinteract_tpu_torch.data.graph import PairedComplex
 from deepinteract_tpu_torch.models.layers import dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
+from deepinteract_tpu_torch.obs import spans as obs_spans
+from deepinteract_tpu_torch.obs.heartbeat import Heartbeat
 from deepinteract_tpu_torch.robustness import artifacts, faults
-from deepinteract_tpu_torch.robustness.guards import NonFiniteTrainingError
+from deepinteract_tpu_torch.robustness.guards import (NonFiniteTrainingError,
+                                                      dump_diagnostics, summarize_batch)
 from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard, TrainingPreempted
 from deepinteract_tpu_torch.training import metrics as M
 from deepinteract_tpu_torch.training.checkpoint import (CheckpointConfig, Checkpointer,
@@ -86,6 +96,9 @@ class LoopConfig:
     # thread, so the JAX package's fallback for a device snapshot that
     # exhausts device memory has no counterpart here.
     async_checkpoint: bool = True
+    # Write <ckpt_dir>/obs/heartbeat_p0.json every N seconds from a daemon
+    # thread (0: no heartbeat): host, span path, progress step and time.
+    heartbeat_seconds: float = 0.0
 
 
 class EarlyStopping:
@@ -229,6 +242,12 @@ class Trainer:
         # Train steps run by this trainer (a resumed fit runs only the
         # steps after its checkpoint).
         self.steps_run = 0
+        # The running fit's heartbeat (None outside fit or when off).
+        self._heartbeat: Optional[Heartbeat] = None
+
+    def _progress(self, **fields) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat.progress(**fields)
 
     def init_state(self, fine_tune_from: Optional[str] = None) -> TrainState:
         """The train state around the model's current weights, seeded (for
@@ -250,7 +269,11 @@ class Trainer:
         convention. ``csv_path`` writes the per-target top-k CSV."""
         per_complex: List[Dict[str, float]] = []
         for batch in _iter_data(data, 0):
-            out = eval_step(state, batch, self.cfg.weight_classes)
+            # Eval batches are progress too: a long validation must not read
+            # as a hung step loop to the supervisor.
+            self._progress(phase=f"eval:{stage}")
+            with obs_spans.span("eval", stage=stage):
+                out = eval_step(state, batch, self.cfg.weight_classes)
             probs = out["probs"].float().cpu().numpy()
             logits = out["logits"].float().cpu().numpy()
             for b in range(probs.shape[0]):
@@ -294,23 +317,29 @@ class Trainer:
         ``save_every_steps`` steps."""
         cfg = self.cfg
         since_save = 0
+        # Abort-diagnostics context: the last steps' metrics and the last batch.
+        recent = collections.deque(maxlen=32)
         for batch in self._epoch_source(data, epoch, start_batch, skips_used):
             if faults.fire("train.sigterm") and self._preempt is not None:
                 self._preempt.request("injected SIGTERM (fault plan)")
+            if faults.fire("training.step_crash"):
+                raise RuntimeError("injected training.step_crash fault (fault plan)")
+            if faults.fire("training.hang"):
+                _simulate_hang(self.log)
             batch = faults.maybe_poison("train.nan_batch", batch)
             self._check_preempt()
-            m = train_step(state, batch, cfg.weight_classes, guard=cfg.nonfinite_guard)
+            with obs_spans.span("step", epoch=epoch):
+                m = train_step(state, batch, cfg.weight_classes, guard=cfg.nonfinite_guard)
             self.steps_run += 1
             losses.append(m["loss"])
+            recent.append({"loss": m["loss"], "grad_norm": m["grad_norm"]})
+            self._progress(step=len(losses), epoch=epoch)
             if m.get("bad_step"):
                 stats["skipped_steps"] += 1
                 self.log(f"epoch {epoch} step {len(losses)}: non-finite loss/grads "
                          f"(loss={m['loss']}) - optimizer update skipped")
                 if state.bad_steps >= cfg.max_bad_steps:
-                    raise NonFiniteTrainingError(
-                        f"aborting: {state.bad_steps} consecutive non-finite train steps "
-                        f"(epoch {epoch}, step {len(losses)}, max_bad_steps="
-                        f"{cfg.max_bad_steps})")
+                    self._abort_nonfinite(state, epoch, len(losses), recent, batch)
             if cfg.log_every and len(losses) % cfg.log_every == 0:
                 self.log(f"epoch {epoch} step {len(losses)}: loss={m['loss']:.4f} "
                          f"grad_norm={m['grad_norm']:.4f}")
@@ -318,6 +347,21 @@ class Trainer:
             if save_fn is not None and since_save >= cfg.save_every_steps:
                 save_fn(state, len(losses))
                 since_save = 0
+
+    def _abort_nonfinite(self, state: TrainState, epoch: int, step: int, recent,
+                         batch: PairedComplex) -> None:
+        """Write the diagnostics JSON (the last steps' loss and grad norm,
+        a summary of the last batch) into ckpt_dir, or the working
+        directory, and raise NonFiniteTrainingError."""
+        cfg = self.cfg
+        path = dump_diagnostics(cfg.ckpt_dir or ".", {
+            "epoch": epoch, "step": step, "consecutive_bad_steps": int(state.bad_steps),
+            "max_bad_steps": cfg.max_bad_steps, "recent_metrics": list(recent),
+            "recent_batches": [summarize_batch(batch)]})
+        raise NonFiniteTrainingError(
+            f"aborting: {state.bad_steps} consecutive non-finite train steps (epoch {epoch}, "
+            f"step {step}, max_bad_steps={cfg.max_bad_steps}); diagnostics: {path}",
+            diagnostics_path=path)
 
     def _make_midsave(self, ckpt: Checkpointer, saver: _Saver, epoch: int,
                       stopper: EarlyStopping, losses: List[float], stats: Dict[str, int],
@@ -329,7 +373,8 @@ class Trainer:
 
         def midsave(state: TrainState, batches_done: int) -> None:
             saver.drain()  # the boundary save in flight shares the retention of last/
-            ckpt.save_midepoch(epoch, batches_done, host_snapshot(state))
+            with obs_spans.span("checkpoint", epoch=epoch):
+                ckpt.save_midepoch(epoch, batches_done, host_snapshot(state))
             skips = int(skips_fn(batches_done)) if callable(skips_fn) else base_skips
             write_sidecar(self.cfg.ckpt_dir, {
                 "epoch": epoch, "stopper_best": stopper.best,
@@ -338,6 +383,7 @@ class Trainer:
                            "opt_step": int(state.step), "seed": self.cfg.seed,
                            "skips_used": skips, "skipped_steps": int(stats["skipped_steps"]),
                            "loss_ledger": [float(x) for x in losses]}})
+            self._progress(phase="midepoch_checkpoint", epoch=epoch)
 
         return midsave
 
@@ -392,6 +438,13 @@ class Trainer:
         saver = _Saver(ckpt, cfg.async_checkpoint) if ckpt is not None else None
         preempt = PreemptionGuard(log=self.log) if cfg.preemption_guard else None
         self._preempt = preempt
+        if cfg.heartbeat_seconds > 0:
+            # Started right before the try whose finally stops it, so no
+            # setup failure above can leave a beating thread behind.
+            self._heartbeat = Heartbeat(
+                os.path.join(cfg.ckpt_dir or ".", "obs",
+                             "heartbeat_p0.json"),
+                interval_s=cfg.heartbeat_seconds).start()
         t_start = time.time()
         abort: Optional[Exception] = None
         try:
@@ -408,10 +461,11 @@ class Trainer:
                     midsave = self._make_midsave(ckpt, saver, epoch, stopper, losses, stats,
                                                  train_data,
                                                  cursor.skips_used if resuming else 0)
-                self._train_epoch(state, train_data, epoch, losses, stats,
-                                  start_batch=cursor.batch if resuming else 0,
-                                  skips_used=cursor.skips_used if resuming else 0,
-                                  save_fn=midsave)
+                with obs_spans.span("epoch", epoch=epoch):
+                    self._train_epoch(state, train_data, epoch, losses, stats,
+                                      start_batch=cursor.batch if resuming else 0,
+                                      skips_used=cursor.skips_used if resuming else 0,
+                                      save_fn=midsave)
                 # Skipped steps made no update: their losses stay out of the mean.
                 finite = [x for x in losses if math.isfinite(x)]
                 metrics: Dict[str, float] = {
@@ -439,8 +493,11 @@ class Trainer:
                             avg.add_((p - avg) / swa_count)
                 if saver is not None:
                     t_save = time.perf_counter()
-                    saver.submit(epoch + 1, state, metrics)
+                    with obs_spans.span("checkpoint", epoch=epoch):
+                        saver.submit(epoch + 1, state, metrics)
                     metrics["checkpoint_seconds"] = time.perf_counter() - t_save
+                # Boundary work (the save, the stopper) is progress too.
+                self._progress(phase="epoch_boundary", epoch=epoch)
                 stop = False
                 if val_data is not None and stopper.update(
                         metrics.get(cfg.metric_to_track, float("nan"))):
@@ -468,6 +525,9 @@ class Trainer:
                 if preempt is not None:
                     preempt.__exit__(None, None, None)
                 self._preempt = None
+                if self._heartbeat is not None:
+                    self._heartbeat.stop()
+                    self._heartbeat = None
         if abort is not None:
             if isinstance(abort, TrainingPreempted):
                 self.log(f"preempted ({abort}): the newest checkpoint is flushed - rerun "
@@ -498,3 +558,13 @@ class Trainer:
             for batch in _iter_data(data, 0):
                 batch = batch.to(device)
                 model(batch.graph1, batch.graph2)
+
+
+def _simulate_hang(log) -> None:
+    """The ``training.hang`` fault site: freeze the step loop forever while
+    the heartbeat thread (a daemon) keeps the file fresh and its progress
+    stamp goes stale, the signature on which the supervisor's watchdog
+    kills the process. Nothing else ends this loop."""
+    log("training.hang fault injected: step loop frozen until killed")
+    while True:
+        time.sleep(0.25)

@@ -19,6 +19,10 @@ The scanned decoder layout (``base_resnet/chunks/block_d{d}/...`` with a
 leading ``[num_chunks]`` axis) is unstacked to ``block_{i}_{d}``; the
 unrolled layout is taken as it is. A key that maps nowhere, or a port
 tensor that no key fills, raises.
+
+:func:`jax_variable_shapes` runs the other way: the flax paths and shapes
+of the JAX package's variables for a port model, which the reference
+checkpoint importer (``training/import_torch.py``) fills.
 """
 
 from __future__ import annotations
@@ -121,6 +125,91 @@ def _convert_leaf(mod: nn.Module, leaf: str, value: np.ndarray) -> Dict[str, np.
     elif isinstance(mod, nn.Conv2d) and leaf in ("kernel", "bias"):
         return {"weight": value.transpose(3, 2, 0, 1)} if leaf == "kernel" else {"bias": value}
     raise KeyError(f"unknown leaf {leaf!r} for {type(mod).__name__}")
+
+
+# flax wraps these port layers in one more auto-named module.
+_FLAX_WRAPPER = ((GODense, "Dense_0"), (MaskedBatchNorm, "MaskedBatchNorm_0"),
+                 (LayerNorm, "LayerNorm_0"))
+
+
+def _flax_leaves(mod: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """The inverse of :func:`_convert_leaf` for a layer: {flax leaf name:
+    (collection, flax shape)}."""
+    if isinstance(mod, PairStem1x1):
+        f = mod.chain2.out_features
+        return {"kernel": ("params", (1, 1, mod.chain1.in_features + mod.chain2.in_features, f)),
+                "bias": ("params", (f,))}
+    out = {}
+    if isinstance(mod, _NORMS):
+        for leaf, name in _NORM_LEAVES.items():
+            t = getattr(mod, name, None)
+            if isinstance(t, torch.Tensor):
+                out[leaf] = ("batch_stats" if leaf in ("mean", "var") else "params",
+                             tuple(t.shape))
+    elif isinstance(mod, nn.Embedding):
+        out["embedding"] = ("params", tuple(mod.weight.shape))
+    elif isinstance(mod, nn.Linear):
+        out["kernel"] = ("params", tuple(mod.weight.shape[::-1]))
+    elif isinstance(mod, nn.Conv2d):
+        o, i, kh, kw = mod.weight.shape
+        out["kernel"] = ("params", (kh, kw, i, o))
+    if isinstance(mod, (nn.Linear, nn.Conv2d)) and mod.bias is not None:
+        out["bias"] = ("params", tuple(mod.bias.shape))
+    return out
+
+
+def jax_variable_shapes(model: nn.Module, scan_chunks: bool = True) -> Dict:
+    """The JAX package's variables tree for the same model, shapes only:
+    ``{"params": {...}, "batch_stats": {...}}`` with a tuple of ints at
+    each flax leaf path, as ``jax.eval_shape`` of its init gives it. The
+    inverse of :func:`_resolve` and :func:`_convert_leaf`: child names
+    map back through ``flax_names``, and the layers flax wraps once more
+    get their auto-name (``Dense_0`` in a ``GODense``, ``MaskedBatchNorm_0``
+    / ``LayerNorm_0`` in a feature norm). With ``scan_chunks`` (the JAX
+    ``DecoderConfig`` default) the base ResNet's ``block_{i}_{d}`` stack
+    into ``chunks/block_d{d}`` leaves with a leading [num_chunks] axis.
+    Works on a model built on the meta device."""
+    tree: Dict = {"params": {}, "batch_stats": {}}
+
+    def walk(mod: nn.Module, path: Tuple[str, ...]) -> None:
+        if isinstance(mod, _LEAVES):
+            wrap = tuple(name for cls, name in _FLAX_WRAPPER if isinstance(mod, cls))
+            for leaf, (collection, shape) in _flax_leaves(mod).items():
+                _set_leaf(tree[collection], path + wrap + (leaf,), shape)
+            return
+        for name, param in mod._parameters.items():
+            if param is not None:
+                _set_leaf(tree["params"], path + (name,), tuple(param.shape))
+        flax_of = {child: flax for flax, child in getattr(mod, "flax_names", {}).items()}
+        for name, child in mod._modules.items():
+            if child is not None:
+                walk(child, path + (flax_of.get(name, name),))
+
+    walk(model, ())
+    if scan_chunks:
+        for collection in tree.values():
+            resnet = collection.get("decoder", {}).get("base_resnet")
+            if resnet is not None:
+                _stack_chunks(resnet)
+    return tree
+
+
+def _stack_chunks(resnet: Dict) -> None:
+    """``block_{i}_{d}`` subtrees -> ``chunks/block_d{d}`` with a leading
+    [num_chunks] axis on every leaf shape (the JAX ``stack_chunk_params``)."""
+    blocks = [k for k in resnet if re.fullmatch(r"block_\d+_\d+", k)]
+    num_chunks = len({k.split("_")[1] for k in blocks})
+
+    def stacked(tree):
+        return {k: stacked(v) if isinstance(v, dict) else (num_chunks,) + v
+                for k, v in tree.items()}
+
+    chunks = {}
+    for key in blocks:
+        sub = resnet.pop(key)
+        chunks[f"block_d{key.split('_')[2]}"] = stacked(sub)
+    if chunks:
+        resnet["chunks"] = chunks
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> None:

@@ -145,15 +145,29 @@ def test_wrapper_input_checks(bad):
     arrays = _inputs(seed=5, d=8)
     q, kk, v, pe, _, _ = _torch(arrays)
     nbr, mask = torch.from_numpy(arrays[4]), torch.from_numpy(arrays[5]).float()
-    if bad == "head_dim":
-        q, kk, v = (torch.zeros(2, 32, 1, 48) for _ in range(3))
-        pe = torch.zeros(2, 32, 6, 1, 48)
+    if bad == "head_dim":  # one head past the kernels' widest row (MAX_WIDTH)
+        d = cuda_attention.MAX_WIDTH + 8
+        q, kk, v = (torch.zeros(1, 4, 1, d) for _ in range(3))
+        pe = torch.zeros(1, 4, 6, 1, d)
+        nbr, mask = nbr[:1, :4] % 4, mask[:1, :4]
     elif bad == "dtype":
         nbr = nbr.long()
     else:
         pe = pe.transpose(3, 4).contiguous().transpose(3, 4)
     with pytest.raises(ValueError):
         cuda_attention._check_inputs(q, kk, v, pe, nbr, mask)
+
+
+@pytest.mark.parametrize("heads,head_dim", [(4, 24), (2, 64), (1, 128), (4, 6), (16, 96),
+                                            (1, 4096)])
+def test_wrapper_takes_every_head_dim_up_to_the_width_bound(heads, head_dim):
+    """K1 and K2 take any head dim with H*D <= MAX_WIDTH (4096); the
+    kernels themselves run in chip_smoke.py."""
+    arrays = _inputs(seed=5, d=8)
+    nbr, mask = torch.from_numpy(arrays[4]), torch.from_numpy(arrays[5]).float()
+    b, n, kk = nbr.shape
+    q, k, v = (torch.zeros(b, n, heads, head_dim) for _ in range(3))
+    cuda_attention._check_inputs(q, k, v, torch.zeros(b, n, kk, heads, head_dim), nbr, mask)
 
 
 def test_dispatch_routes_cpu_to_plain_and_refuses_kernel_gather():

@@ -4,7 +4,9 @@ the ``trainer_state.json`` bookkeeping), the fine-tune warm start, SWA,
 and the LR range test."""
 
 import dataclasses
+import json
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -181,3 +183,47 @@ def test_lr_find_sweeps_geometrically_and_keeps_the_weights(batches):
     assert suggested in lrs or len(history) < 4
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k
+
+
+def test_abort_on_max_bad_steps_writes_the_diagnostics(batches, tmp_path, monkeypatch):
+    """Every batch poisoned with NaN: the guard skips two steps, then the
+    loop aborts with the JAX loop's diagnostics JSON in ckpt_dir."""
+    from deepinteract_tpu_torch.robustness import faults
+    from deepinteract_tpu_torch.robustness.guards import NonFiniteTrainingError
+
+    monkeypatch.delenv("DI_FAULTS", raising=False)
+    faults.configure("train.nan_batch=9")
+    try:
+        trainer = _trainer(_model(), 1, max_bad_steps=2, ckpt_dir=str(tmp_path))
+        with pytest.raises(NonFiniteTrainingError) as err:
+            trainer.fit(trainer.init_state(), batches)
+    finally:
+        faults.reset()
+    path = err.value.diagnostics_path
+    assert path and os.path.dirname(path) == str(tmp_path) and path in str(err.value)
+    with open(path) as f:
+        dump = json.load(f)
+    assert (dump["epoch"], dump["step"], dump["consecutive_bad_steps"],
+            dump["max_bad_steps"]) == (0, 2, 2, 2)
+    assert len(dump["recent_metrics"]) == 2
+    assert all(math.isnan(m["loss"]) for m in dump["recent_metrics"])
+    leaves = dump["recent_batches"][0]["leaves"]
+    assert any(leaf.get("nan_count", 0) > 0 for leaf in leaves)
+
+
+def test_heartbeat_stamps_steps_evals_saves_and_boundaries(batches, tmp_path, monkeypatch):
+    from deepinteract_tpu_torch.obs import heartbeat
+
+    stamps = []
+    real = heartbeat.Heartbeat.progress
+    monkeypatch.setattr(heartbeat.Heartbeat, "progress",
+                        lambda self, **f: stamps.append(dict(f)) or real(self, **f))
+    trainer = _trainer(_model(), 1, ckpt_dir=str(tmp_path), heartbeat_seconds=30.0,
+                       save_every_steps=1)
+    trainer.fit(trainer.init_state(), batches, val_data=batches[:1])
+    assert stamps == [{"step": 1, "epoch": 0}, {"phase": "midepoch_checkpoint", "epoch": 0},
+                      {"step": 2, "epoch": 0}, {"phase": "midepoch_checkpoint", "epoch": 0},
+                      {"phase": "eval:val"}, {"phase": "epoch_boundary", "epoch": 0}]
+    beat = heartbeat.read(str(tmp_path / "obs" / "heartbeat_p0.json"))
+    assert (beat["step"], beat["epoch"], beat["phase"]) == (2, 0, "epoch_boundary")
+    assert beat["host"].endswith(f":{os.getpid()}") and trainer._heartbeat is None

@@ -161,7 +161,9 @@ def test_bfloat16_policy_runs_on_cpu(carried):
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
-    "models.vision", "models.tiled", "models.stem"))
+    "models.vision", "models.tiled", "models.stem",
+    "obs.metrics", "obs.spans", "obs.heartbeat", "robustness.retry",
+    "training.import_torch", "training.supervisor", "cli.import_checkpoint"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -157,3 +157,40 @@ def test_eval_step_is_the_eval_mode_forward(shared):
     assert torch.equal(out["logits"], logits)
     np.testing.assert_allclose(out["probs"].sum(-1).numpy(), 1.0, rtol=1e-6)
     assert torch.isfinite(out["loss"])
+
+
+# (hidden, heads): head dims 24 and 64, which the CUDA kernels once refused.
+WIDE_HEADS = ((96, 4), (128, 2))
+
+
+@pytest.mark.parametrize("hidden,heads", WIDE_HEADS, ids=["D24", "D64"])
+def test_train_step_matches_jax_at_wider_heads(hidden, heads):
+    """One GT layer of hidden 96 / 4 heads and of hidden 128 / 2 heads
+    (layer norms, a short decoder): loss 1e-5, every gradient 1e-4."""
+    def widen(cfg):
+        gnn = dataclasses.replace(cfg.gnn, hidden=hidden, num_heads=heads, num_layers=1,
+                                  dropout_rate=0.0)
+        decoder = dataclasses.replace(cfg.decoder, in_channels=2 * hidden, num_chunks=1,
+                                      dilation_cycle=(1, 2))
+        return dataclasses.replace(cfg, gnn=gnn, decoder=decoder)
+
+    jcfg, pcfg = widen(jax_cfg(norm_type="layer")), widen(port_cfg(norm_type="layer"))
+    jcx, cx = complexes(seed=13)
+    variables = random_variables(jcfg, jcx, seed=13)
+    model = JaxDeepInteract(jcfg)
+
+    def step(params, batch):
+        state = types.SimpleNamespace(apply_fn=model.apply, batch_stats={})
+        return jax.value_and_grad(loss_and_updates, has_aux=True)(
+            params, state, batch, False, jax.random.PRNGKey(0))
+
+    (loss, _), grads = jax.jit(step)(variables["params"], jcx)
+    port = DeepInteract(pcfg)
+    load_jax_variables(port, variables)
+    metrics = train_step(create_train_state(port), cx)
+    np.testing.assert_allclose(metrics["loss"], float(loss), **LOSS_TOL)
+    ref = DeepInteract(pcfg)
+    load_jax_variables(ref, {"params": grads})
+    ref = ref.state_dict()
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(), err_msg=name, **GRAD_TOL)

@@ -160,8 +160,10 @@ def test_train_flags_reach_the_loop_config():
 
 
 def test_test_cli_refuses_a_reference_checkpoint(trained, tmp_path):
-    (tmp_path / "model.ckpt").write_bytes(b"not read")
-    with pytest.raises(SystemExit, match="queue 1 item 15"):
+    """A reference ``model.ckpt`` is imported now (tests/test_torch_import.py);
+    one that the safe ``torch.load`` cannot read is refused."""
+    (tmp_path / "model.ckpt").write_bytes(b"not a checkpoint")
+    with pytest.raises(SystemExit, match="weights_only"):
         test_cli.main(["--dips_root", str(trained / "dips"), "--ckpt_name", str(tmp_path),
                        *TINY, *CPU])
 

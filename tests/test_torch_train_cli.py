@@ -4,6 +4,7 @@ run without a GPU unless asked for the CPU."""
 
 import ast
 import math
+import os
 
 import pytest
 import torch
@@ -52,3 +53,37 @@ def test_train_cli_refuses_without_gpu_unless_asked(tmp_path, capsys):
     rc = train_cli.main(["--dips_root", str(tmp_path)])
     assert rc != 0
     assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--pos_prob_threshold", "0.3", "--no_nonfinite_guard", "--max_bad_steps", "4",
+         "--heartbeat_seconds", "2.5"]], ids=["defaults", "set"])
+def test_guard_and_heartbeat_flags_parse_to_the_jax_fields(flags):
+    """--pos_prob_threshold, --no_nonfinite_guard, --max_bad_steps and
+    --heartbeat_seconds reach the same LoopConfig fields in both packages."""
+    from deepinteract_tpu.cli.args import build_parser as jax_build_parser
+    from deepinteract_tpu.cli.args import configs_from_args
+
+    from deepinteract_tpu_torch.cli.args import loop_config_from_args
+
+    ref = configs_from_args(jax_build_parser("x").parse_args(flags))[2]
+    got = loop_config_from_args(train_cli.parse_args(flags))
+    fields = ("pos_prob_threshold", "nonfinite_guard", "max_bad_steps", "heartbeat_seconds")
+    assert [getattr(got, f) for f in fields] == [getattr(ref, f) for f in fields]
+
+
+def test_deterministic_flag_holds_for_the_run_only(tmp_path, monkeypatch):
+    """``--deterministic`` turns deterministic algorithms on around the run
+    (and sets cuBLAS's workspace), then restores the caller's setting."""
+    write_tiny_npz_dataset(str(tmp_path / "dips"), n_complexes=2)
+    seen = []
+    real_run = train_cli._run
+    monkeypatch.setattr(train_cli, "_run", lambda args: seen.append(
+        torch.are_deterministic_algorithms_enabled()) or real_run(args))
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    args = train_cli.parse_args(["--dips_root", str(tmp_path / "dips"), "--num_epochs", "1",
+                                 "--ckpt_dir", str(tmp_path / "ck"), "--deterministic",
+                                 "--log_every", "0", "--device", "cpu", *TINY])
+    train_cli.run(args)
+    assert seen == [True] and not torch.are_deterministic_algorithms_enabled()
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"

@@ -21,7 +21,7 @@ from deepinteract_tpu.models.vision import DeepLabDecoder as JaxDeepLabDecoder
 from deepinteract_tpu.models.vision import _masked_resize as jax_masked_resize
 from deepinteract_tpu_torch.models.interaction import interaction_tensor
 from deepinteract_tpu_torch.models.stem import DeepLabStemConv, PairFactors, factorized_stem_conv
-from deepinteract_tpu_torch.models.vision import (DeepLabConfig, DeepLabDecoder,
+from deepinteract_tpu_torch.models.vision import (DeepLabConfig, DeepLabDecoder, bilinear_resize,
                                                   _masked_resize)
 from deepinteract_tpu_torch.weights import init_weights, load_jax_variables
 from torch_port_helpers import random_like
@@ -113,6 +113,25 @@ def test_masked_resize_matches_jax(factor):
     ref = np.asarray(jax_masked_resize(jnp.asarray(y), jnp.asarray(mask), hw))
     out = _masked_resize(torch.from_numpy(y).permute(0, 3, 1, 2),
                          torch.from_numpy(mask)[:, None], hw)
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, **TIGHT)
+
+
+@pytest.mark.parametrize("src,dst", [((5, 7), (13, 50)), ((13, 9), (50, 33)),
+                                     ((50, 33), (13, 9)), ((1, 3), (5, 7))],
+                         ids=["up", "up_odd", "down_odd", "from_one"])
+def test_resize_matrices_match_jax_image_resize(src, dst):
+    """The interpolation-matrix resize against ``jax.image.resize(...,
+    "bilinear")`` at odd sizes, both ways (shrinking antialiases), alone
+    and masked: 1e-5."""
+    rng = np.random.default_rng(sum(src + dst))
+    y = rng.standard_normal((2, *src, 3)).astype(np.float32)  # NHWC
+    ref = np.asarray(jax.image.resize(jnp.asarray(y), (2, *dst, 3), method="bilinear"))
+    out = bilinear_resize(torch.from_numpy(y).permute(0, 3, 1, 2), dst)
+    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, **TIGHT)
+    mask = (rng.random((2, *src)) < 0.7).astype(np.float32)
+    ref = np.asarray(jax_masked_resize(jnp.asarray(y), jnp.asarray(mask), dst))
+    out = _masked_resize(torch.from_numpy(y).permute(0, 3, 1, 2),
+                         torch.from_numpy(mask)[:, None], dst)
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, **TIGHT)
 
 
