@@ -45,8 +45,8 @@ Phases, in order; any failure exits non-zero:
      (on a prebuilt CSR, as the main path runs it) and the CSR build at
      N = 64, 128, 192, 256 and 512 beside each kernel's bound, the plain
      versions at N = 256; predict per complex split into encode and
-     decode; the train step per complex (host clock around synchronized
-     steps, median of 10) with its peak memory and its split into
+     decode (median of 10); the train step per complex (host clock around
+     synchronized steps, median of 3) with its peak memory and its split into
      forward, backward and optimizer; one step of the largest complex
      under torch.profiler for its kernel count and device busy share;
   7. the model configurations beyond the flagship decoder, at the
@@ -77,9 +77,25 @@ Phases, in order; any failure exits non-zero:
   8c. ``cli.train --supervise`` at the flagship width with a hang injected
      (``training.hang``): one restart, a ``train_supervise/v1`` record that
      ``tools/check_cli_contract.py`` accepts, and the final state against
-     an unsupervised run of the same command.
+     an unsupervised run of the same command;
+  9. serving: ``serving.InferenceEngine`` at the flagship width (seeded
+     weights) with five warm-up keys, each captured once as a CUDA graph
+     (128x128, 256x192, 64x256 at one slot, 256x192 at four, and the
+     over-bucket 600x450 -> 768x512, six tiles): (K1, K2, CSR builds)
+     measured around each capture, (4, 0, 2) for every key, K1 in a
+     profiled replay, each key's replay on its served batch against the
+     eager forward (bitwise, else 1e-6) and against the plain attention
+     (phase 4's bar, rtol 1e-4 / atol 1e-4), served maps
+     against ``predict_complex`` (1e-6; a slot of a coalesced four 1e-5;
+     the over-bucket map 1e-4), no capture on the warm path; the served
+     and eager latency per bucket, eight coalesced against eight
+     sequential requests, a replay's host and device time, peak memory;
+     then ``ServingServer`` on a free port (``/predict?trace=1``,
+     ``/healthz``, ``/stats``, ``/metrics``) and a drain with a request
+     in flight.
 The line before the last is the card's name and power limit; before it, a
-``{"kernels": [...]}`` JSON line. The last line is the device record
+``{"kernels": [...]}`` JSON line, and before that phase 9's
+``{"serving": {...}}`` summary. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -97,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1209,8 +1226,11 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
 
 # Timing runs (medians) per path: maps of one tile, tiled maps, the DeepLab
 # train step, the tiled train step. Cut from 20 / 5 / 5 / 3 in PR 6 to keep
-# the script near 400 s after phase 8 joined it.
-CONFIG_RUNS = {"predict": 5, "predict_tiled": 3, "train": 3, "train_tiled": 2}
+# the script near 400 s after phase 8 joined it, and to 3 / 2 / 2 / 1 when
+# phase 9 joined it.
+CONFIG_RUNS = {"predict": 3, "predict_tiled": 2, "train": 2, "train_tiled": 1}
+PHASE6_PREDICT_RUNS = 10  # per complex (20 before phase 9 joined the script)
+PHASE6_TRAIN_RUNS = 3  # per batch (5 before phase 9)
 
 
 def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS) -> dict:
@@ -1560,6 +1580,350 @@ def run_supervisor(seed, flags=(), hang_timeout_s=HANG_TIMEOUT_S) -> dict:
                 "wall_s": {"supervised": t2 - t0, "both": t1 - t0}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: serving (one CUDA graph per bucket)
+# ---------------------------------------------------------------------------
+
+# Warm-up keys (bucket_n1 x bucket_n2 x batch slots): the buckets of
+# COMPLEXES, four slots of one, and the over-bucket 600x450 -> 768x512.
+SERVE_WARMUP = ((128, 128, 1), (256, 192, 1), (64, 256, 1), (256, 192, 4),
+                TILED_COMPLEX + (1,))
+SERVE_RUNS = 10  # timed requests per bucket (the tiled key's too), each side
+
+
+def _served_batch(engine, raws):
+    """The graph-cache key and the stacked host batch that the engine's
+    ``_flush`` replays for ``raws`` coalesced (one bucket)."""
+    bucket_key = engine._bucket_key(raws[0])
+    batch, slots = engine._assemble(raws, bucket_key)
+    return bucket_key + (slots,), batch
+
+
+def check_replays(engine, plain_model, batches, device) -> dict:
+    """Each warm key's replay on its served batch against the eager forward
+    on the same static batch (bitwise, else <= 1e-6) and against the plain
+    attention's forward (phase 4's bar: rtol 1e-4, atol 1e-4)."""
+    from deepinteract_tpu_torch.serving.graphs import serve_forward
+
+    out = {}
+    for key, batch in batches.items():
+        label = engine._key_label(key)
+        g1, g2 = batch.graph1.to(device), batch.graph2.to(device)
+        with engine._exec_lock, torch.inference_mode():
+            replayed = engine._entries[key].replay(batch.graph1, batch.graph2).clone()
+            eager = serve_forward(engine.model, g1, g2)
+            plain = serve_forward(plain_model, g1, g2)
+        bitwise = bool(torch.equal(replayed, eager))
+        eager_diff = float((replayed - eager).abs().max())
+        plain_diff = float((replayed - plain).abs().max())
+        check(bitwise or eager_diff <= 1e-6,
+              f"replay {label} vs eager forward: {eager_diff:.3g} (bitwise or <= 1e-6)")
+        check(torch.allclose(replayed, plain, rtol=1e-4, atol=1e-4),
+              f"replay {label} vs the plain attention's forward: {plain_diff:.3g} "
+              "(rtol 1e-4, atol 1e-4)")
+        out[label] = {"bitwise_vs_eager": bitwise, "max_abs_diff_vs_eager": eager_diff,
+                      "max_abs_diff_vs_plain": plain_diff}
+        log(f"  replay {label}: vs eager forward "
+            f"{'bitwise equal' if bitwise else f'max |diff| {eager_diff:.3g} (bar 1e-6)'}, "
+            f"vs plain attention max |diff| {plain_diff:.3g} (rtol 1e-4, atol 1e-4)")
+    return out
+
+
+def profile_replay(engine, key, batch) -> dict:
+    """One replay of ``key`` under torch.profiler: K1 kernels and all
+    device kernels listed in it (0 and 0 if the profiler lists no kernel
+    inside a graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    entry = engine._entries[key]
+    with engine._exec_lock:
+        entry.replay(batch.graph1, batch.graph2)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            entry.replay(batch.graph1, batch.graph2)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"k1": sum("edge_attention_fwd" in e.name for e in kernels),
+            "kernels": len(kernels)}
+
+
+def _post(host, port, path, body, headers, timeout=120):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _get(host, port, path, timeout=30):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, (data.decode() if path == "/metrics" else json.loads(data))
+    finally:
+        conn.close()
+
+
+def _npz_bytes(raw) -> bytes:
+    buf = io.BytesIO()
+    save_complex_npz(buf, raw["graph1"], raw["graph2"], raw["examples"], "smoke")
+    return buf.getvalue()
+
+
+def _metric(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    raise KeyError(name)
+
+
+def run_http(engine, raw) -> dict:
+    """ServingServer on a free port: POST /predict (npz, ?trace=1), the GET
+    routes against stats(), then a drain with one request in flight."""
+    from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard
+    from deepinteract_tpu_torch.serving import SchedulerClosed, ServingServer
+
+    server = ServingServer(engine, port=0)
+    guard = PreemptionGuard(log=lambda s: None)  # flag-only off the main thread
+    rc = {}
+    runner = threading.Thread(target=lambda: rc.setdefault("rc", server.run(guard=guard)))
+    runner.start()
+    t_end = time.monotonic() + 10
+    while server._serve_thread is None and time.monotonic() < t_end:
+        time.sleep(0.01)
+    host, port = server.address
+    body = _npz_bytes(raw)
+    status, out = _post(host, port, "/predict?trace=1", body,
+                        {"Content-Type": "application/octet-stream"})
+    check(status == 200 and len(out["trace_id"]) == 16 and out["trace"]["device_ms"] > 0,
+          f"HTTP /predict: status {status}, {str(out)[:200]}")
+    phases = {k: out["trace"][f"{k}_ms"] for k in ("queue_wait", "batch_assembly",
+                                                    "compile", "device")}
+    probs = np.asarray(out["contact_probs"])
+    direct = engine.predict(raw)["probs"]
+    check(probs.shape == direct.shape and float(np.abs(probs - direct).max()) <= 1e-6,
+          "HTTP /predict probabilities differ from the engine's")
+    status, health = _get(host, port, "/healthz")
+    stats = engine.stats()
+    check(status == 200 and health["status"] == "ok" and health["mesh_shape"] == "1x1"
+          and health["warm_buckets"] == sorted(stats["compiled_buckets"]),
+          f"/healthz {health}")
+    status, sstats = _get(host, port, "/stats")
+    status_m, text = _get(host, port, "/metrics")
+    check(status == 200 and status_m == 200, "/stats or /metrics not 200")
+    for name, want in (("di_serving_compiled_executables",
+                        sstats["engine"]["num_compiled_executables"]),
+                       ("di_serving_compiles_total", sstats["engine"]["capture_count"]),
+                       ("di_serving_executed_requests_total",
+                        sstats["engine"]["executed_requests"]),
+                       ("di_serving_request_latency_seconds_count", sstats["latency"]["count"])):
+        got = _metric(text, name)
+        check(got == want, f"/metrics {name} {got} != /stats {want}")
+    # Drain with a request in flight: the worker is held at the exec lock,
+    # the drain waits for it, a POST meanwhile gets 503, and the held
+    # request completes once the lock is released.
+    engine._exec_lock.acquire()
+    try:
+        inflight = engine.submit(random_raw_complex(90, 70, np.random.default_rng(7)))
+        time.sleep(0.05)
+        guard.request("smoke drain")
+        t_end = time.monotonic() + 10
+        while not server._draining.is_set() and time.monotonic() < t_end:
+            time.sleep(0.01)
+        status_503, _ = _post(host, port, "/predict", body,
+                              {"Content-Type": "application/octet-stream"})
+    finally:
+        engine._exec_lock.release()
+    done = inflight.result(timeout=60)
+    runner.join(timeout=60)
+    check(status_503 == 503, f"POST while draining: {status_503}, expected 503")
+    check(done["probs"].shape == (90, 70) and not runner.is_alive() and rc.get("rc") == 0,
+          "the in-flight request or the drain did not complete")
+    try:
+        engine.submit(raw)
+        check(False, "the engine accepted a request after the drain")
+    except SchedulerClosed:
+        pass
+    return {"trace_phases_ms": phases, "status_while_draining": status_503}
+
+
+def run_serving(cfg, raws, tiled_raw, seed, device, smi) -> dict:
+    """Phase 9: InferenceEngine at the flagship width on the card."""
+    from deepinteract_tpu_torch.obs.reqtrace import RequestTrace
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    log("== phase 9: serving (InferenceEngine, one CUDA graph per bucket, flagship width)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, cfg=EngineConfig(max_batch=4, warmup_buckets=SERVE_WARMUP,
+                                                   result_cache_size=0),
+                             seed=seed, device=device)
+    construct_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
+    stats = engine.stats()
+    captures = stats["capture_count"]
+    inventory = stats["compile_inventory"]
+    check(captures == len(SERVE_WARMUP) == len(inventory),
+          f"{captures} captures for {len(SERVE_WARMUP)} warm-up keys: {sorted(inventory)}")
+    # (K1, K2 launches, CSR builds) during each key's capture, as measured.
+    counted = {label: (info["k1_launches"], info["k2_launches"], info["csr_builds"])
+               for label, info in inventory.items()}
+    for label, info in inventory.items():
+        log(f"  capture {label}: {info['seconds']:.3f} s, (K1, K2, CSR builds) "
+            f"{counted[label]}")
+    check(len(set(counted.values())) == 1, f"captures counted differently: {counted}")
+    per_capture = next(iter(counted.values()))
+    check(per_capture == (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR),
+          f"each capture counted (K1, K2, CSR builds) {per_capture}, expected "
+          f"{(LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)}")
+    log(f"  engine construction (weights + {captures} captures) {construct_s:.3f} s; peak "
+        f"memory after warm-up {peak_gib:.3f} GiB allocated, {reserved_gib:.3f} GiB reserved")
+    ref_model = engine.model
+
+    # Served against predict_complex at the same bucket (the one-shot path,
+    # eager, on the same model), each complex alone.
+    served_vs_predict = []
+    for (n1, n2), raw in zip(COMPLEXES, raws):
+        got = engine.predict(raw)
+        ref = predict_complex(raw, ref_model, device)["contact_prob_map"]
+        diff = float(np.abs(got["probs"] - ref).max())
+        served_vs_predict.append(diff)
+        check(got["probs"].shape == (n1, n2) and diff <= 1e-6,
+              f"served {n1}x{n2} vs predict_complex: {diff:.3g} (bar 1e-6)")
+    # A slot of a coalesced batch of four against the same complex alone.
+    group = [raws[1]] + [random_raw_complex(201 + i, 181 + i, np.random.default_rng(seed + i))
+                         for i in range(3)]
+    futures = [engine.submit(raw) for raw in group]
+    coalesced = [f.result(timeout=120) for f in futures]
+    check(all(r["coalesced"] == 4 and r["batch_slots"] == 4 for r in coalesced),
+          f"four concurrent submits coalesced as {[r['coalesced'] for r in coalesced]}")
+    slot_diff = max(float(np.abs(r["probs"] - engine.predict(raw)["probs"]).max())
+                    for r, raw in zip(coalesced, group))
+    check(slot_diff <= 1e-5, f"coalesced slot vs served alone: {slot_diff:.3g} (bar 1e-5)")
+    # The over-bucket request against predict_complex with tile_pair_map.
+    tiled = engine.predict(tiled_raw)
+    tiled_ref = predict_complex(tiled_raw, ref_model, device)["contact_prob_map"]
+    tiled_diff = float(np.abs(tiled["probs"] - tiled_ref).max())
+    check(tiled["bucket"] == (768, 512) and tiled_diff <= 1e-4,
+          f"over-bucket {TILED_COMPLEX}: bucket {tiled['bucket']}, {tiled_diff:.3g} from "
+          "predict_complex (bar 1e-4)")
+    log(f"  served vs predict_complex: {max(served_vs_predict):.3g} (bar 1e-6); coalesced "
+        f"slot vs alone {slot_diff:.3g} (bar 1e-5); over-bucket 768x512 {tiled_diff:.3g} "
+        "(bar 1e-4)")
+
+    # Every warm key's replay on its served batch, against the eager forward
+    # and the plain attention on the same static batch.
+    batches = dict(_served_batch(engine, rs) for rs in ([raws[0]], [raws[1]], [raws[2]],
+                                                        group, [tiled_raw]))
+    check(set(batches) == set(engine._entries),
+          f"served batches {sorted(map(engine._key_label, batches))} are not the warm keys")
+    plain_model = load_model(plain_variant(ref_model.cfg), device, seed=seed)
+    plain_model.load_state_dict(ref_model.state_dict())
+    replay_checks = check_replays(engine, plain_model, batches, device)
+    del plain_model
+    key4, batch4 = _served_batch(engine, group)
+    prof = profile_replay(engine, key4, batch4)
+    listed = prof["kernels"] > 0
+    check(not listed or prof["k1"] == LAUNCHES_PER_ENCODE_PAIR,
+          f"profiled replay: {prof['k1']} K1 kernels of {prof['kernels']}, expected "
+          f"{LAUNCHES_PER_ENCODE_PAIR}")
+    log(f"  profiled replay: " + (f"{prof['k1']} K1 kernels among {prof['kernels']} device "
+                                  "kernels" if listed else
+                                  "torch.profiler listed no kernel inside the graph"))
+
+    # Times, host to host, warm: a replayed request per bucket beside eager
+    # predict_complex at the same bucket.
+    times = {}
+    for (n1, n2), raw in list(zip(COMPLEXES, raws)) + [(TILED_COMPLEX, tiled_raw)]:
+        walls, dispatch = [], []
+        for _ in range(SERVE_RUNS):
+            rt = RequestTrace("/predict")
+            t0 = time.perf_counter()
+            out = engine.predict(raw, reqtrace=rt)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            tr = out["trace"]
+            dispatch.append(tr["batch_assembly_ms"] + tr["compile_ms"] + tr["device_ms"])
+        eager_walls = []
+        for _ in range(SERVE_RUNS):
+            t0 = time.perf_counter()
+            predict_complex(raw, ref_model, device)
+            eager_walls.append((time.perf_counter() - t0) * 1e3)
+        label = "x".join(map(str, engine.bucket_for(n1, n2)))
+        times[label] = {"served_ms": statistics.median(walls),
+                        "dispatch_ms": statistics.median(dispatch),
+                        "eager_predict_ms": statistics.median(eager_walls)}
+        log(f"  {n1}x{n2} (bucket {label}): served {times[label]['served_ms']:.3f} ms (of "
+            f"which assembly + replay + fetch {times[label]['dispatch_ms']:.3f} ms), eager "
+            f"predict_complex {times[label]['eager_predict_ms']:.3f} ms (medians of {SERVE_RUNS}); "
+            f"[{smi}]")
+    # Eight concurrent submits (two groups of max_batch=4) against eight
+    # sequential predicts, all in the 256x192 bucket.
+    eight = [random_raw_complex(200 + i, 175 + i, np.random.default_rng(seed + 10 + i))
+             for i in range(8)]
+    t0 = time.perf_counter()
+    for raw in eight:
+        engine.predict(raw)
+    sequential_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = [f.result(timeout=120) for f in [engine.submit(raw) for raw in eight]]
+    coalesced_s = time.perf_counter() - t0
+    log(f"  8 requests at 256x192: sequential predicts {sequential_s * 1e3:.3f} ms "
+        f"({8 / sequential_s:.2f} complexes/s), concurrent submits {coalesced_s * 1e3:.3f} ms "
+        f"({8 / coalesced_s:.2f} complexes/s; groups {sorted(r['coalesced'] for r in outs)})")
+    # Host time of one replay call (copies into the static inputs + launch)
+    # and the device time of the graph alone.
+    key1, batch1 = _served_batch(engine, [raws[1]])
+    entry1 = engine._entries[key1]
+    with engine._exec_lock:
+        host = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry1.replay(batch1.graph1, batch1.graph2)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        graph_ms = time_ms(lambda: entry1.graph.replay(), runs=20)
+    replay_host_ms = statistics.median(host)
+    log(f"  replay call 256x192 b1: host {replay_host_ms:.4f} ms (copies + one graph "
+        f"launch), device {graph_ms:.3f} ms (CUDA events, median of 20)")
+
+    # The warm path captured nothing.
+    stats = engine.stats()
+    check(stats["capture_count"] == captures,
+          f"capture_count {stats['capture_count']} after warm requests, {captures} at warm-up")
+    replays = {label: info["replays"] for label, info in stats["compile_inventory"].items()}
+    check(sum(replays.values()) >= 20, f"only {sum(replays.values())} replays")
+    log(f"  capture_count {captures} after {stats['executed_requests']} served requests; "
+        f"replays per key {replays}")
+    http = run_http(engine, raws[0])
+    log(f"  HTTP: /predict?trace=1 200 {http['trace_phases_ms']}, /healthz, /stats, "
+        f"/metrics agree; drain: in-flight completed, POST while draining "
+        f"{http['status_while_draining']}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"captures": captures, "capture_s": {k: v["seconds"] for k, v in inventory.items()},
+            "per_capture": per_capture,
+            "replays": sum(replays.values()), "replays_by_key": replays,
+            "profiled_replay": prof, "replay_checks": replay_checks,
+            "served_vs_predict_max": max(served_vs_predict), "slot_vs_alone_max": slot_diff,
+            "tiled_vs_predict_max": tiled_diff, "times_ms": times,
+            "eight_sequential_ms": sequential_s * 1e3, "eight_concurrent_ms": coalesced_s * 1e3,
+            "replay_host_ms": replay_host_ms, "replay_device_ms": graph_ms,
+            "peak_gib": peak_gib, "reserved_gib": reserved_gib,
+            "construct_s": construct_s, "http": http}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1641,18 +2005,19 @@ def main(argv=None) -> int:
     lifecycle["checkpoint"] = time_checkpoint(state)
     log("  lifecycle: " + json.dumps(lifecycle))
 
-    log("== phase 6: times (CUDA events, median of 20)")
+    log("== phase 6: times (CUDA events; kernels median of 20, predict of "
+        f"{PHASE6_PREDICT_RUNS})")
     ktimes = time_kernels(rng, flagship, flagship_bwd)
     for (n1, n2), raw in zip(COMPLEXES, raws):
-        t = time_predict(model, raw, device)
+        t = time_predict(model, raw, device, runs=PHASE6_PREDICT_RUNS)
         log(f"  predict {n1}x{n2}: encode x2 {t['encode_ms']:.3f} ms, decode "
             f"{t['decode_ms']:.3f} ms, predict_complex wall {t['predict_wall_ms']:.3f} ms")
     for batch in batches:
         b1, b2 = batch.contact_map.shape[1:]
         n1, n2 = int(batch.graph1.num_nodes[0]), int(batch.graph2.num_nodes[0])
-        t = time_train_step(state, batch.to(device), runs=5)
+        t = time_train_step(state, batch.to(device), runs=PHASE6_TRAIN_RUNS)
         log(f"  train step {n1}x{n2} (buckets {b1}/{b2}): {t['train_step_ms']:.3f} ms "
-            f"(host clock, synchronized, median of 5), peak memory "
+            f"(host clock, synchronized, median of {PHASE6_TRAIN_RUNS}), peak memory "
             f"{t['max_memory_allocated_gb']:.3f} GiB; split: forward+loss "
             f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, optimizer "
             f"{t['optimizer_ms']:.3f} ms")
@@ -1673,6 +2038,8 @@ def main(argv=None) -> int:
         configs[f"train_six_tiles_remat_{policy}"] = remat[f"train_six_tiles_{policy}"]
     importer = run_importer(cfg, raws, args.seed, device)
     supervisor = run_supervisor(args.seed)
+    serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
+                          device, smi)
     log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                   if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
@@ -1690,7 +2057,8 @@ def main(argv=None) -> int:
                                         for path in LIFECYCLE_PATHS},
                                      **{path: configs[path]["launches"][2]
                                         for path in config_paths},
-                                     **{path: c[2] for path, c in more_paths.items()}},
+                                     **{path: c[2] for path, c in more_paths.items()},
+                                     "serve_per_capture": serving["per_capture"][2]},
               "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
                              ("tiled_two", "deeplab"))},
                          "importer": {k: v for k, v in importer.items() if k != "launches"},
@@ -1719,7 +2087,12 @@ def main(argv=None) -> int:
                              **{path: lifecycle["launches"][path][0]
                                 for path in LIFECYCLE_PATHS},
                              **{path: configs[path]["launches"][0] for path in config_paths},
-                             **{path: c[0] for path, c in more_paths.items()}},
+                             **{path: c[0] for path, c in more_paths.items()},
+                             # Served: counted at each capture (the Python counter does
+                             # not run at replay), and the replays of every entry.
+                             "serve_per_capture": serving["per_capture"][0],
+                             "serve_replays": serving["replays"]},
+        "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
         "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
         "ms_by_head_dim": {k: t["k1_ms"] for k, t in ktimes["by_head_dim"].items()},
         "bound_ms_by_head_dim": {k: t["k1_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -1738,7 +2111,8 @@ def main(argv=None) -> int:
                              **{path: lifecycle["launches"][path][1]
                                 for path in LIFECYCLE_PATHS},
                              **{path: configs[path]["launches"][1] for path in config_paths},
-                             **{path: c[1] for path, c in more_paths.items()}},
+                             **{path: c[1] for path, c in more_paths.items()},
+                             "serve_per_capture": serving["per_capture"][1]},
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
         "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -1754,6 +2128,7 @@ def main(argv=None) -> int:
             "layer_norm": dict(zip(("loss_diff", "max_grad_diff"), ln_diffs[:2]))},
         **common,
     }]
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

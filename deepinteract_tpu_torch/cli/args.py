@@ -75,9 +75,14 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--test_with_casp_capri", action="store_true")
     g.add_argument("--percent_to_use", type=float, default=1.0)
     g.add_argument("--split_ver", type=str, default=None)
+    g.add_argument("--batch_size", type=int, default=1)
+    add_bucket_args(g)
+
+
+def add_bucket_args(g) -> None:
+    """The input flags that training, testing and serving share."""
     g.add_argument("--input_indep", action="store_true",
                    help="zero all input features (the reference's control)")
-    g.add_argument("--batch_size", type=int, default=1)
     g.add_argument("--pad_to_max_bucket", action="store_true",
                    help="pad every chain to at least the top bucket")
     g.add_argument("--diagonal_buckets", action="store_true",
@@ -168,6 +173,59 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
                         "supervisor stops and exits nonzero")
     g.add_argument("--train_circuit_window_s", type=float, default=3600.0,
                    help="sliding window of --train_circuit_max_restarts")
+
+
+def add_serving_args(p: argparse.ArgumentParser) -> None:
+    """Knobs of the resident inference engine (``cli/serve.py``), with the
+    JAX package's names and defaults; the model and checkpoint flags are
+    shared with train/test/predict."""
+    g = p.add_argument_group("serving")
+    g.add_argument("--host", type=str, default="127.0.0.1")
+    g.add_argument("--port", type=int, default=8008,
+                   help="0 picks a free port (printed at startup)")
+    g.add_argument("--max_batch", type=int, default=8,
+                   help="micro-batch flush size: pending same-bucket requests share one "
+                        "graph replay once this many are queued")
+    g.add_argument("--max_delay_ms", type=float, default=5.0,
+                   help="max time a lone request waits for batch company before flushing "
+                        "anyway (latency bound)")
+    g.add_argument("--warmup_buckets", type=str, default="",
+                   help="comma list of B1xB2xBATCH keys captured at startup (e.g. "
+                        "128x128x1,128x128x8) so first requests replay warm graphs")
+    g.add_argument("--result_cache_size", type=int, default=256,
+                   help="LRU entries of depadded contact maps keyed on a content hash of "
+                        "the featurized complex (0 disables)")
+    g.add_argument("--request_timeout_s", type=float, default=120.0,
+                   help="per-request wait bound inside the HTTP handler")
+    g.add_argument("--max_queue_depth", type=int, default=64,
+                   help="admission control: max pending requests PER shape bucket; "
+                        "submits beyond it are rejected 429 with Retry-After")
+    g.add_argument("--max_inflight", type=int, default=256,
+                   help="admission control: max admitted-but-unanswered requests across "
+                        "all buckets (global cap)")
+    g.add_argument("--default_deadline_ms", type=float, default=0.0,
+                   help="request deadline applied when the client sends neither "
+                        "X-Request-Deadline-Ms nor deadline_s; expired requests fail 504 "
+                        "before a dispatch (0 disables)")
+    g.add_argument("--shed_enter_util", type=float, default=0.9,
+                   help="load shedding: enter degraded mode (429 on POST, /healthz "
+                        "'overloaded') when in-flight/max_inflight reaches this fraction")
+    g.add_argument("--shed_exit_util", type=float, default=0.5,
+                   help="load shedding: leave degraded mode once utilization falls back "
+                        "under this fraction (hysteresis; must be <= --shed_enter_util)")
+    g.add_argument("--shed_min_degraded_s", type=float, default=2.0,
+                   help="minimum dwell in degraded mode before recovery is considered")
+    g.add_argument("--no_load_shedding", action="store_true",
+                   help="disable the degraded-mode shedder (bounded queues still reject "
+                        "429 at admission)")
+    g.add_argument("--events_out", type=str, default=None,
+                   help="span event log (JSONL) for request-scoped tracing: every traced "
+                        "request's queue-wait/compile/device decomposition lands here "
+                        "under its trace_id")
+    g.add_argument("--heartbeat_file", type=str, default=None,
+                   help="periodic liveness file (obs/heartbeat.py)")
+    g.add_argument("--heartbeat_interval_s", type=float, default=5.0,
+                   help="heartbeat write cadence for --heartbeat_file")
 
 
 def add_restore_args(p) -> None:

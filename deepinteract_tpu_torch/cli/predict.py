@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -40,16 +40,19 @@ REPRESENTATIONS = ("graph1_node_feats", "graph2_node_feats",
                    "graph1_edge_feats", "graph2_edge_feats")
 
 
-def load_model(cfg: ModelConfig, device, weights: Optional[str] = None,
+def load_model(cfg: ModelConfig, device, weights: Union[str, Mapping, None] = None,
                seed: int = 42, ckpt_name: Optional[str] = None,
                metric_to_track: str = "val_ce") -> DeepInteract:
     """An eval-mode model on ``device``: JAX variables from a flat-path
-    ``.npz`` (``weights``), or the best/ step of a checkpoint directory
-    (``ckpt_name``, ranked by ``metric_to_track``), else the seeded init."""
+    ``.npz`` or a ``{"params", "batch_stats"}`` tree (``weights``), or the
+    best/ step of a checkpoint directory (``ckpt_name``, ranked by
+    ``metric_to_track``), else the seeded init."""
     if weights and ckpt_name:
         raise ValueError("give --weights or --ckpt_name, not both")
     model = DeepInteract(cfg)
-    if weights:
+    if isinstance(weights, Mapping):
+        load_jax_variables(model, weights)
+    elif weights:
         load_jax_variables(model, load_npz(weights))
     elif ckpt_name:
         model.to(device)

@@ -50,6 +50,11 @@ def load_complex_npz(path_or_file) -> Dict:
         }
 
 
+def complex_lengths(raw: Dict) -> Tuple[int, int]:
+    """(n1, n2) of a loaded complex."""
+    return raw["graph1"]["node_feats"].shape[0], raw["graph2"]["node_feats"].shape[0]
+
+
 def complex_lengths_from_file(path: str) -> Tuple[int, int]:
     """(n1, n2) from the npy headers of a complex ``.npz`` alone, without
     decompressing any array (bucket planning reads every file of a

@@ -32,6 +32,12 @@ Sites of the port:
   before fsync: the torn-tmp crash point
 * ``storage.replace``    raises OSError before the atomic rename
 * ``storage.read``       poisons a verified read with a CorruptArtifact
+* ``serving.admission``  rejects a submit with ``Overloaded``
+  (``serving/engine.py``), before the result cache is read
+* ``serving.assembly``   fails a coalesced batch while it is padded and
+  stacked: ``BatchExecutionError(stage="assembly")``, its group only
+* ``serving.dispatch``   fails a coalesced batch before its graph replay:
+  ``BatchExecutionError(stage="dispatch")``, its group only
 
 With no plan configured every probe is a lookup in an empty map.
 """

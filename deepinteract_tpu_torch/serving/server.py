@@ -1,0 +1,427 @@
+"""Stdlib HTTP JSON API over the :class:`InferenceEngine`.
+
+Port of ``deepinteract_tpu/serving/server.py`` for ``/predict`` and the
+observability routes. No web framework — ``http.server.ThreadingHTTPServer``
+is enough for a JSON control plane whose heavy lifting (batching, graph
+reuse) lives in the engine: handler threads parse the upload with numpy,
+enqueue, and block on the future while the scheduler thread owns the card.
+
+Endpoints:
+
+* ``POST /predict`` — body is either a complex ``.npz`` upload
+  (``data/io.py`` schema, ``Content-Type: application/octet-stream``) or
+  a JSON object ``{"npz_path": ...}``. Response: ``{"complex_name",
+  "trace_id", "n1", "n2", "bucket", "cached", "coalesced", "latency_ms",
+  "contact_probs": [[...]]}``; ``?trace=1`` adds the request's latency
+  decomposition (queue-wait / batch-assembly / compile / device,
+  :mod:`deepinteract_tpu_torch.obs.reqtrace`), the same numbers recorded
+  as ``di_request_*`` histograms and, with a span sink configured, as
+  ``request_*`` events under that ``trace_id``.
+* ``GET /healthz`` — status (``ok`` / ``overloaded`` / ``draining``), the
+  served weights' identity and the warm graph inventory.
+* ``GET /stats`` — queue depth, per-bucket graph inventory, result-cache
+  hit rate, request-latency percentiles, the shedder's state.
+* ``GET /metrics`` — the process-wide registry in Prometheus text format.
+  ``/stats`` percentiles come from the same registry histogram.
+
+Overload discipline (``serving/admission.py``): a full queue answers
+**429 + ``Retry-After``**; an expired deadline (``X-Request-Deadline-Ms``
+header, ``deadline_s`` JSON field, or ``--default_deadline_ms``) answers
+**504**; under sustained pressure the :class:`LoadShedder` answers POSTs
+with 429 before any parse work while ``/stats`` and ``/metrics`` stay
+live.
+
+Shutdown: ``run()`` installs a :class:`PreemptionGuard`; on SIGTERM/SIGINT
+the server stops accepting (``503`` on new predicts), drains in-flight
+requests through the scheduler, answers them, and returns 0.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import math
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional, Tuple
+from urllib.parse import parse_qs
+
+import numpy as np
+
+from deepinteract_tpu_torch.data.io import GRAPH_KEYS, load_complex_npz
+from deepinteract_tpu_torch.obs import metrics as obs_metrics
+from deepinteract_tpu_torch.obs.reqtrace import RequestTrace
+from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard
+from deepinteract_tpu_torch.serving.admission import (
+    Deadline,
+    DeadlineExceeded,
+    LoadShedder,
+    Overloaded,
+    ShedderConfig,
+    ShuttingDown,
+)
+from deepinteract_tpu_torch.serving.engine import InferenceEngine
+from deepinteract_tpu_torch.serving.scheduler import SchedulerClosed
+
+logger = logging.getLogger(__name__)
+
+# Every answered request, labeled by route and HTTP status. The 200-count
+# on /predict equals the latency histogram's count (both recorded on the
+# same success path).
+_REQUESTS = obs_metrics.counter(
+    "di_serving_requests_total", "HTTP requests answered",
+    labelnames=("endpoint", "status"))
+_ROUTES = ("/predict", "/healthz", "/stats", "/metrics")
+
+
+def raw_from_npz_bytes(body: bytes) -> Dict:
+    """An uploaded ``.npz`` complex (the ``save_complex_npz`` schema) ->
+    raw dict, without touching the filesystem."""
+    with np.load(io.BytesIO(body), allow_pickle=False) as z:
+        missing = [k for p in ("g1", "g2")
+                   for k in (f"{p}_{key}" for key in GRAPH_KEYS)
+                   if k not in z] + [k for k in ("examples",) if k not in z]
+        if missing:
+            raise ValueError(f"npz upload missing keys: {missing}")
+    return load_complex_npz(io.BytesIO(body))
+
+
+def raw_from_json(payload: Dict) -> Dict:
+    """JSON request body -> raw complex dict."""
+    if "npz_path" in payload:
+        return load_complex_npz(payload["npz_path"])
+    raise ValueError(
+        "JSON body must contain 'npz_path' (or upload npz bytes as "
+        "application/octet-stream)")
+
+
+class _QuietThreadingHTTPServer(ThreadingHTTPServer):
+    """Route stdlib's handler-thread tracebacks (routine client
+    disconnects, keep-alive sockets torn down by a drain) to debug
+    logging; real request failures are answered as 4xx/5xx JSON."""
+
+    def handle_error(self, request, client_address):  # noqa: N802
+        logger.debug("connection error from %s", client_address,
+                     exc_info=True)
+
+
+class _LatencyTracker:
+    """Request-latency percentiles for /stats, backed by the registry
+    histogram ``/metrics`` exposes (so the two cannot disagree)."""
+
+    def __init__(self):
+        self._hist = obs_metrics.histogram(
+            "di_serving_request_latency_seconds",
+            "End-to-end /predict latency (parse to response)")
+
+    def record(self, seconds: float) -> None:
+        self._hist.observe(seconds)
+
+    def stats(self) -> Dict[str, Any]:
+        count = self._hist.count()
+        if count == 0:
+            return {"count": 0}
+        return {
+            "count": count,
+            "p50_ms": self._hist.percentile(50) * 1e3,
+            "p90_ms": self._hist.percentile(90) * 1e3,
+            "p99_ms": self._hist.percentile(99) * 1e3,
+            "max_ms": self._hist.max_value() * 1e3,
+        }
+
+
+class ServingServer:
+    """Engine + ThreadingHTTPServer + cooperative drain."""
+
+    def __init__(self, engine: InferenceEngine, host: str = "127.0.0.1",
+                 port: int = 8008, request_timeout_s: float = 120.0,
+                 default_deadline_ms: float = 0.0,
+                 shedder_cfg: Optional[ShedderConfig] = None):
+        self.engine = engine
+        self.latency = _LatencyTracker()
+        self._draining = threading.Event()
+        self.request_timeout_s = request_timeout_s
+        # Requests without their own deadline get this budget; <= 0 means
+        # no deadline (request_timeout_s is then the only bound).
+        self.default_deadline_ms = float(default_deadline_ms)
+        # Degraded-mode switch over the signals /metrics serves, evaluated
+        # per POST and per /healthz — no background thread.
+        self.shedder = LoadShedder(shedder_cfg or ShedderConfig(),
+                                   self._shed_signals)
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):  # noqa: N802 - stdlib name
+                logger.debug("http: " + fmt, *args)
+
+            def _route(self) -> str:
+                """Path sans query string."""
+                return self.path.partition("?")[0]
+
+            def _trace_requested(self) -> bool:
+                query = self.path.partition("?")[2]
+                return parse_qs(query).get("trace", ["0"])[-1] in (
+                    "1", "true", "yes")
+
+            def _request_deadline(self, payload: Optional[Dict] = None):
+                """The ``X-Request-Deadline-Ms`` header wins, then a JSON
+                body's ``deadline_s``, then the server-wide default; None =
+                no deadline. Raises ValueError on a non-positive or
+                non-numeric budget."""
+                hdr = self.headers.get("X-Request-Deadline-Ms")
+                if hdr is not None:
+                    ms = float(hdr)
+                    if not ms > 0:
+                        raise ValueError(
+                            f"X-Request-Deadline-Ms must be > 0, got {hdr!r}")
+                    return Deadline.after(ms / 1e3)
+                if payload is not None and "deadline_s" in payload:
+                    sec = float(payload["deadline_s"])
+                    if not sec > 0:
+                        raise ValueError(f"deadline_s must be > 0, got {sec!r}")
+                    return Deadline.after(sec)
+                if server.default_deadline_ms > 0:
+                    return Deadline.after(server.default_deadline_ms / 1e3)
+                return None
+
+            def _send_overloaded(self, retry_after_s: float, error: str) -> None:
+                """429 + Retry-After: the retry contract for admission
+                rejections and shedder-degraded mode."""
+                retry = max(1, int(math.ceil(retry_after_s)))
+                self._send_json(
+                    429,
+                    {"error": error, "retry_after_s": round(float(retry_after_s), 3)},
+                    extra_headers={"Retry-After": str(retry)})
+
+            def _send_body(self, code: int, body: bytes, content_type: str,
+                           extra_headers: Optional[Dict] = None) -> None:
+                # Counted BEFORE the body write, so a client that
+                # disconnects mid-response still counts. The label is the
+                # matched route ("other" for 404s): client paths must not
+                # mint unbounded label values.
+                route = self._route()
+                _REQUESTS.inc(endpoint=route if route in _ROUTES else "other",
+                              status=str(code))
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(body)))
+                for name, value in (extra_headers or {}).items():
+                    self.send_header(name, value)
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _send_json(self, code: int, payload: Dict,
+                           extra_headers: Optional[Dict] = None) -> None:
+                self._send_body(code, json.dumps(payload).encode(),
+                                "application/json", extra_headers=extra_headers)
+
+            def do_GET(self):  # noqa: N802 - stdlib name
+                route = self._route()
+                if route == "/healthz":
+                    # Degraded is a liveness-page state, not an error: the
+                    # process is healthy and REFUSING work on purpose.
+                    degraded = server.shedder.evaluate()
+                    draining = server._draining.is_set()
+                    status = ("draining" if draining
+                              else "overloaded" if degraded else "ok")
+                    self._send_json(200, {
+                        "status": status,
+                        "draining": draining,
+                        "degraded": degraded,
+                        "weights_signature": server.engine.weights_signature(),
+                        "mesh_shape": "1x1",
+                        "warm_buckets": server.engine.warm_bucket_labels(),
+                    })
+                elif route == "/stats":
+                    self._send_json(200, server.stats())
+                elif route == "/metrics":
+                    self._send_body(200, server.metrics_text().encode(),
+                                    obs_metrics.CONTENT_TYPE)
+                else:
+                    self._send_json(404, {"error": f"no route {self.path}"})
+
+            def do_POST(self):  # noqa: N802 - stdlib name
+                if self._route() != "/predict":
+                    self._send_json(404, {"error": f"no route {self.path}"})
+                    return
+                if server._draining.is_set():
+                    self._send_json(503, {"error": "server is draining"})
+                    return
+                if server.shedder.evaluate():
+                    # Degraded: drain the body (keep-alive framing must stay
+                    # intact) but skip ALL parse work.
+                    self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                    server.shedder.count_rejection()
+                    self._send_overloaded(
+                        server.engine.admission.retry_after_s(),
+                        "server overloaded (load shedding active); "
+                        "retry after the indicated delay")
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    body = self.rfile.read(length)
+                    ctype = self.headers.get("Content-Type", "")
+                    if ctype.startswith("application/json"):
+                        payload = json.loads(body.decode())
+                        deadline = self._request_deadline(payload)
+                        raw = raw_from_json(payload)
+                    else:
+                        deadline = self._request_deadline()
+                        raw = raw_from_npz_bytes(body)
+                except Exception as exc:  # noqa: BLE001 - client error
+                    self._send_json(400, {"error": str(exc)})
+                    return
+                # Minted AFTER parse: the trace covers the request's trip
+                # through the scheduler and engine; upload decode time is
+                # in latency_ms.
+                reqtrace = RequestTrace("/predict")
+                t0 = time.monotonic()
+                try:
+                    result = server.engine.predict(
+                        raw, timeout=server.request_timeout_s,
+                        reqtrace=reqtrace, deadline=deadline)
+                except Overloaded as exc:
+                    self._send_overloaded(exc.retry_after_s, str(exc))
+                    return
+                except DeadlineExceeded as exc:
+                    response = {"error": str(exc), "trace_id": reqtrace.trace_id}
+                    if self._trace_requested() and exc.trace is not None:
+                        response["trace"] = exc.trace
+                    self._send_json(504, response)
+                    return
+                except (SchedulerClosed, ShuttingDown):
+                    self._send_json(503, {"error": "server is draining"})
+                    return
+                except Exception as exc:  # noqa: BLE001 - surfaced to client
+                    logger.exception("predict failed")
+                    self._send_json(500, {"error": str(exc)})
+                    return
+                latency = time.monotonic() - t0
+                server.latency.record(latency)
+                response = {
+                    "complex_name": raw.get("complex_name", ""),
+                    "trace_id": reqtrace.trace_id,
+                    "n1": result["n1"],
+                    "n2": result["n2"],
+                    "bucket": list(result["bucket"]),
+                    "cached": result["cached"],
+                    "coalesced": result.get("coalesced", 1),
+                    "latency_ms": latency * 1e3,
+                    "contact_probs": np.asarray(
+                        result["probs"], dtype=np.float64).tolist(),
+                }
+                if self._trace_requested() and "trace" in result:
+                    response["trace"] = result["trace"]
+                self._send_json(200, response)
+
+        self.httpd = _QuietThreadingHTTPServer((host, port), Handler)
+        self._serve_thread: Optional[threading.Thread] = None
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        host, port = self.httpd.server_address[:2]
+        return str(host), int(port)
+
+    def serve_background(self) -> None:
+        """Start accepting connections on a daemon thread (used by run()
+        and by tests; the production entry is run())."""
+        self._serve_thread = threading.Thread(
+            target=self.httpd.serve_forever, name="http-serve", daemon=True)
+        self._serve_thread.start()
+
+    def drain(self) -> None:
+        """Stop accepting new predicts, finish in-flight ones, stop the
+        listener. Idempotent."""
+        if self._draining.is_set():
+            return
+        self._draining.set()
+        # Flush everything still queued; handler threads blocked on their
+        # futures get their responses before the listener goes away.
+        self.engine.close()
+        self.httpd.shutdown()
+        if self._serve_thread is not None:
+            self._serve_thread.join(timeout=10.0)
+        self.httpd.server_close()
+
+    def run(self, guard: Optional[PreemptionGuard] = None,
+            poll_seconds: float = 0.25) -> int:
+        """Blocking serve loop: SIGTERM/SIGINT -> drain in-flight requests
+        -> return 0. ``guard`` is injectable for tests (flag-only outside
+        the main thread)."""
+        own_guard = guard is None
+        guard = guard or PreemptionGuard(log=logger.warning)
+        if own_guard:
+            guard.__enter__()
+        try:
+            self.serve_background()
+            host, port = self.address
+            logger.info("serving on http://%s:%d (POST /predict, GET /healthz, "
+                        "GET /stats, GET /metrics)", host, port)
+            while not guard.requested:
+                time.sleep(poll_seconds)
+            logger.warning("drain requested (%s): refusing new requests, "
+                           "flushing %d queued", guard.reason,
+                           self.engine.scheduler.stats()["queue_depth"])
+        finally:
+            self.drain()
+            if own_guard:
+                guard.__exit__(None, None, None)
+        return 0
+
+    # -- observability -----------------------------------------------------
+
+    def _shed_signals(self) -> Dict[str, float]:
+        """The load shedder's inputs, read from the sources /metrics
+        serves: admission occupancy, the request-latency p99, and the
+        capture-in-flight gauge."""
+        adm = self.engine.admission.stats()
+        return {
+            "utilization": adm["inflight"] / max(1, adm["max_inflight"]),
+            "queue_depth": float(adm["queued"]),
+            "p99_ms": float(self.latency.stats().get("p99_ms", 0.0)),
+            "compile_inflight": obs_metrics.gauge(
+                "di_serving_compile_inflight").value(),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        # Live in degraded mode by design: the shedder only gates POSTs.
+        return {
+            "engine": self.engine.stats(),
+            "latency": self.latency.stats(),
+            "shedding": self.shedder.stats(),
+            "draining": self._draining.is_set(),
+        }
+
+    def metrics_text(self) -> str:
+        """Prometheus text for ``GET /metrics``: point-in-time gauges are
+        refreshed from the engine at scrape time, then the whole process
+        registry is rendered."""
+        eng = self.engine.stats()
+        g = obs_metrics.gauge
+        g("di_serving_queue_depth",
+          "Requests pending in the micro-batch scheduler").set(
+            eng["scheduler"]["queue_depth"])
+        g("di_serving_compiled_executables",
+          "Entries in the shape-bucketed graph cache").set(
+            eng["num_compiled_executables"])
+        g("di_serving_result_cache_size",
+          "Entries in the LRU result cache").set(eng["result_cache"]["size"])
+        g("di_serving_result_cache_hit_rate",
+          "Result-cache hit rate since startup").set(
+            eng["result_cache"]["hit_rate"])
+        g("di_serving_uptime_seconds", "Engine uptime").set(eng["uptime_seconds"])
+        g("di_serving_draining", "1 while the server refuses new work").set(
+            float(self._draining.is_set()))
+        # di_shed_degraded must show the CURRENT mode at scrape time.
+        self.shedder.evaluate()
+        adm = eng["admission"]
+        g("di_serving_inflight", "Admitted requests not yet answered").set(
+            adm["inflight"])
+        g("di_serving_retry_after_seconds",
+          "Current backlog-drain estimate handed to rejected clients").set(
+            adm["retry_after_s"])
+        return obs_metrics.render()

@@ -156,14 +156,17 @@ def test_bfloat16_policy_runs_on_cpu(carried):
     assert reps["graph1_node_feats"].dtype == torch.bfloat16
 
 
-# The training lifecycle's and the model configurations' modules, named so
-# that the check below fails if one of them stops being importable on its own.
+# The training lifecycle's, the model configurations' and serving's modules,
+# named so that the check below fails if one of them stops being importable
+# on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
     "models.vision", "models.tiled", "models.stem",
     "obs.metrics", "obs.spans", "obs.heartbeat", "robustness.retry",
-    "training.import_torch", "training.supervisor", "cli.import_checkpoint"))
+    "training.import_torch", "training.supervisor", "cli.import_checkpoint",
+    "serving.cache", "serving.admission", "serving.scheduler", "serving.graphs",
+    "serving.engine", "serving.server", "obs.reqtrace", "cli.serve"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -11,6 +11,7 @@ golden fixture's: hidden 16, 2 heads, kNN 6, 26x22 residues (padded to
 
 from __future__ import annotations
 
+import time
 from collections.abc import Mapping
 
 import jax
@@ -113,3 +114,12 @@ def random_variables(jcfg: JaxModelConfig, jcx, seed: int = 0) -> dict:
     model = JaxDeepInteract(jcfg)
     return random_like(jax.eval_shape(lambda: model.init(
         jax.random.PRNGKey(0), jcx.graph1, jcx.graph2, train=False)), seed)
+
+
+def wait_until(cond, timeout: float = 30.0, poll: float = 0.002) -> None:
+    """Poll ``cond`` until it holds (the serving tests' event-driven waits:
+    a poll, never a fixed sleep); fails after ``timeout`` seconds."""
+    t_end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < t_end, "condition not reached"
+        time.sleep(poll)
