@@ -92,10 +92,36 @@ Phases, in order; any failure exits non-zero:
      sequential requests, a replay's host and device time, peak memory;
      then ``ServingServer`` on a free port (``/predict?trace=1``,
      ``/healthz``, ``/stats``, ``/metrics``) and a drain with a request
-     in flight.
+     in flight; then an engine with the GCN encoder and one with the
+     DeepLab decoder, each with one key of 128x128 at one slot: (K1, K2,
+     CSR builds) per capture (0, 0, 2) and (4, 0, 2), the replay against
+     the eager forward (bitwise, else 1e-6) and the served map against
+     ``predict_complex`` (1e-6);
+ 10. the split phase at the flagship width: a seeded synthetic library of
+     16 chains of 40-250 residues (buckets 64-256) screened all-vs-all
+     (120 pairs, ``--screen_batch 4``) through one CUDA graph per
+     (chain bucket, slots) encode and per (bucket1, bucket2, slots) decode:
+     (2, 0, 1) per encode capture, K1 in a profiled encode replay, exactly
+     16 encodes, then a warm repeat with 16 cache hits, no encode and no
+     capture; one pair per bucket pair encoded and decoded at one slot
+     against the monolithic replay (bitwise, else 1e-6) and the plain
+     attention (rtol / atol 1e-4), and decoded from the screen's
+     embeddings (encoded in batches) against it within 1e-5, the bar of a
+     coalesced slot; a manifest-backed screen preempted by its guard and
+     resumed (no pair twice, scores within 1e-5 of the uninterrupted
+     screen's); an index of the library, verified, and two queries (top_m
+     8) whose scores are the screen's rows (1e-5); a 4-chain assembly with one
+     chain twice (3 encodes) and its control score; the ``screen``,
+     ``index`` (build, verify), ``query``, ``assemble``, ``calibrate`` (ECE
+     lower after the fit) and ``predict --top_k --calibration`` CLIs, each
+     last line through ``tools/check_cli_contract.py``; encode ms per chain
+     and decode ms per pair per key (replay device time), the screen's
+     pairs a second and its device time, and 16 of its pairs through
+     ``engine.predict``.
 The line before the last is the card's name and power limit; before it, a
-``{"kernels": [...]}`` JSON line, and before that phase 9's
-``{"serving": {...}}`` summary. The last line is the device record
+``{"kernels": [...]}`` JSON line, before that phase 10's
+``{"screening": {...}}`` summary, and before that phase 9's
+``{"serving": {...}}`` one. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -1601,8 +1627,9 @@ def _served_batch(engine, raws):
 
 def check_replays(engine, plain_model, batches, device) -> dict:
     """Each warm key's replay on its served batch against the eager forward
-    on the same static batch (bitwise, else <= 1e-6) and against the plain
-    attention's forward (phase 4's bar: rtol 1e-4, atol 1e-4)."""
+    on the same static batch (bitwise, else <= 1e-6) and, with a
+    ``plain_model``, against the plain attention's forward (phase 4's bar:
+    rtol 1e-4, atol 1e-4)."""
     from deepinteract_tpu_torch.serving.graphs import serve_forward
 
     out = {}
@@ -1612,35 +1639,53 @@ def check_replays(engine, plain_model, batches, device) -> dict:
         with engine._exec_lock, torch.inference_mode():
             replayed = engine._entries[key].replay(batch.graph1, batch.graph2).clone()
             eager = serve_forward(engine.model, g1, g2)
-            plain = serve_forward(plain_model, g1, g2)
+            plain = None if plain_model is None else serve_forward(plain_model, g1, g2)
         bitwise = bool(torch.equal(replayed, eager))
         eager_diff = float((replayed - eager).abs().max())
-        plain_diff = float((replayed - plain).abs().max())
         check(bitwise or eager_diff <= 1e-6,
               f"replay {label} vs eager forward: {eager_diff:.3g} (bitwise or <= 1e-6)")
-        check(torch.allclose(replayed, plain, rtol=1e-4, atol=1e-4),
-              f"replay {label} vs the plain attention's forward: {plain_diff:.3g} "
-              "(rtol 1e-4, atol 1e-4)")
-        out[label] = {"bitwise_vs_eager": bitwise, "max_abs_diff_vs_eager": eager_diff,
-                      "max_abs_diff_vs_plain": plain_diff}
-        log(f"  replay {label}: vs eager forward "
-            f"{'bitwise equal' if bitwise else f'max |diff| {eager_diff:.3g} (bar 1e-6)'}, "
-            f"vs plain attention max |diff| {plain_diff:.3g} (rtol 1e-4, atol 1e-4)")
+        out[label] = {"bitwise_vs_eager": bitwise, "max_abs_diff_vs_eager": eager_diff}
+        msg = (f"  replay {label}: vs eager forward "
+               f"{'bitwise equal' if bitwise else f'max |diff| {eager_diff:.3g} (bar 1e-6)'}")
+        if plain is not None:
+            plain_diff = float((replayed - plain).abs().max())
+            check(torch.allclose(replayed, plain, rtol=1e-4, atol=1e-4),
+                  f"replay {label} vs the plain attention's forward: {plain_diff:.3g} "
+                  "(rtol 1e-4, atol 1e-4)")
+            out[label]["max_abs_diff_vs_plain"] = plain_diff
+            msg += f", vs plain attention max |diff| {plain_diff:.3g} (rtol 1e-4, atol 1e-4)"
+        log(msg)
     return out
 
 
-def profile_replay(engine, key, batch) -> dict:
-    """One replay of ``key`` under torch.profiler: K1 kernels and all
-    device kernels listed in it (0 and 0 if the profiler lists no kernel
-    inside a graph)."""
+def profile_replay(engine, key, *inputs) -> dict:
+    """One replay of ``key`` on ``inputs`` under torch.profiler: K1 kernels
+    and all device kernels listed in it (0 and 0 if the profiler lists no
+    kernel inside a graph)."""
     from torch.profiler import ProfilerActivity, profile
 
     entry = engine._entries[key]
     with engine._exec_lock:
-        entry.replay(batch.graph1, batch.graph2)  # warm
+        entry.replay(*inputs)  # warm
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            entry.replay(batch.graph1, batch.graph2)
+            entry.replay(*inputs)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"k1": sum("edge_attention_fwd" in e.name for e in kernels),
+            "kernels": len(kernels)}
+
+
+def profile_graph(engine, entry) -> dict:
+    """One replay of an entry's graph on its static inputs under
+    torch.profiler: K1 kernels and all device kernels listed in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with engine._exec_lock:
+        entry.graph.replay()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            entry.graph.replay()
             torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"k1": sum("edge_attention_fwd" in e.name for e in kernels),
@@ -1833,7 +1878,7 @@ def run_serving(cfg, raws, tiled_raw, seed, device, smi) -> dict:
     replay_checks = check_replays(engine, plain_model, batches, device)
     del plain_model
     key4, batch4 = _served_batch(engine, group)
-    prof = profile_replay(engine, key4, batch4)
+    prof = profile_replay(engine, key4, batch4.graph1, batch4.graph2)
     listed = prof["kernels"] > 0
     check(not listed or prof["k1"] == LAUNCHES_PER_ENCODE_PAIR,
           f"profiled replay: {prof['k1']} K1 kernels of {prof['kernels']}, expected "
@@ -1922,6 +1967,419 @@ def run_serving(cfg, raws, tiled_raw, seed, device, smi) -> dict:
             "replay_host_ms": replay_host_ms, "replay_device_ms": graph_ms,
             "peak_gib": peak_gib, "reserved_gib": reserved_gib,
             "construct_s": construct_s, "http": http}
+
+
+# Phase 9's keys of the configurations that capture since the GCN and
+# DeepLab forwards stopped reading the host: (bucket_n1, bucket_n2, slots).
+SERVE_CONFIG_KEY = (128, 128, 1)
+
+
+def run_serving_configs(cfg, raws, seed, device) -> dict:
+    """Phase 9, continued: an engine with the GCN encoder and one with the
+    DeepLab decoder, each with one warm key of 128x128 at one slot. Each
+    capture's (K1, K2, CSR builds) is read from the engine: (0, 0, 2) for
+    the GCN, (4, 0, 2) for DeepLab. The replay on the served batch against
+    the eager forward (bitwise, else 1e-6), the served map against
+    ``predict_complex`` (1e-6), and no capture on the warm path."""
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    variants = (
+        ("gcn", dataclasses.replace(cfg, gnn_layer_type="gcn"), (0, 0, BUILDS_PER_ENCODE_PAIR)),
+        ("deeplab", dataclasses.replace(cfg, interact_module_type="deeplab"),
+         (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)))
+    out = {}
+    for name, variant, want in variants:
+        engine = InferenceEngine(variant, cfg=EngineConfig(
+            max_batch=1, warmup_buckets=(SERVE_CONFIG_KEY,), result_cache_size=0),
+            seed=seed, device=device)
+        stats = engine.stats()
+        (label, info), = stats["compile_inventory"].items()
+        counted = (info["k1_launches"], info["k2_launches"], info["csr_builds"])
+        check(stats["capture_count"] == 1 and counted == want,
+              f"{name} key {label}: {stats['capture_count']} captures, (K1, K2, CSR builds) "
+              f"{counted}, expected 1 and {want}")
+        got = engine.predict(raws[0])
+        ref = predict_complex(raws[0], engine.model, device)["contact_prob_map"]
+        diff = float(np.abs(got["probs"] - ref).max())
+        check(got["bucket"] == SERVE_CONFIG_KEY[:2] and diff <= 1e-6,
+              f"{name} served {COMPLEXES[0]} vs predict_complex: {diff:.3g} (bar 1e-6)")
+        replay = check_replays(engine, None, dict([_served_batch(engine, [raws[0]])]), device)
+        check(engine.stats()["capture_count"] == 1, f"{name}: the warm path captured")
+        log(f"  {name} key {label}: capture {info['seconds']:.3f} s, (K1, K2, CSR builds) "
+            f"{counted}; served vs predict_complex {diff:.3g} (bar 1e-6)")
+        out[name] = {"label": label, "capture_s": info["seconds"], "per_capture": counted,
+                     "served_vs_predict_max": diff, "replay_check": replay[label]}
+        engine.close()
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the split phase (screening, index, assembly, calibration)
+# ---------------------------------------------------------------------------
+
+SCREEN_LIBRARY = (16, 40, 250)  # chains, shortest, longest: buckets 64..256
+# The library's seed is the script's plus this: its 16 lengths fall in all
+# four buckets (seed 0's miss 64).
+SCREEN_SEED_OFFSET = 1
+SCREEN_BATCH = 4  # --screen_batch: chains per encode, pairs per decode
+SCREEN_PREEMPT_AT = 5  # decode batches before the guard is requested
+SCREEN_NAIVE_PAIRS = 16  # pairs also timed through engine.predict
+SCREEN_TIME_RUNS = 5  # CUDA-event repeats per split-phase graph
+ENCODE_COUNTS = (2, 0, 1)  # (K1, K2, CSR builds) per encode capture: 2 GT layers, 1 CSR
+# An item decoded in a batch (or from embeddings encoded in one) against the
+# same item alone: phase 9's bar for a slot of a coalesced batch.
+SLOT_BAR = 1e-5
+
+
+def _check_contract(kind: str, text: str) -> dict:
+    """The last stdout line of a CLI through tools/check_cli_contract.py."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                      "check_cli_contract.py"), kind, "-"],
+        input=text, capture_output=True, text=True, timeout=60)
+    check(proc.returncode == 0, f"{kind} contract refused: {proc.stdout} {proc.stderr}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _run_cli(main_fn, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    check(rc == 0, f"{main_fn.__module__} {argv} exited {rc}: {buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+def _graph_ms(entry, runs: int = SCREEN_TIME_RUNS) -> float:
+    """Device time of one replay of an entry's graph (CUDA events)."""
+    return time_ms(lambda: entry.graph.replay(), runs=runs)
+
+
+def check_split_pairs(engine, runner, plain_model, library, records, device) -> dict:
+    """One pair per bucket pair of the screen, against the monolithic
+    forward's replay at one slot of the same oriented pair: encoded and
+    decoded at one slot as well (equal slots: bitwise, else 1e-6), and
+    decoded at one slot from the screen's embeddings, which were encoded in
+    batches of up to ``SCREEN_BATCH`` (SLOT_BAR); the one-slot split against
+    the plain attention's forward (rtol 1e-4, atol 1e-4), and the pair's
+    screen score against the score of that map (SLOT_BAR: the screen
+    decoded it in a batch)."""
+    from deepinteract_tpu_torch.data.graph import stack_graphs
+    from deepinteract_tpu_torch.screening import pair_summary
+    from deepinteract_tpu_torch.serving.graphs import serve_forward
+
+    def decode(f1, f2, b1, b2, n1, n2):
+        args = (f1[None], f2[None], (np.arange(b1) < n1)[None], (np.arange(b2) < n2)[None])
+        return engine.replay_to_host(engine.decode_executable(b1, b2, 1, args), *args)[0]
+
+    def encode_alone(cid, bucket):
+        entry = library[cid]
+        graph = stack_graphs([runner._padded_graph(entry, bucket)])
+        encode = engine.encode_executable(bucket, runner._chain_sig(entry.raw), 1, graph)
+        return engine.replay_to_host(encode, graph)[0]
+
+    first = {}
+    for rec in sorted(records, key=lambda r: r["pair_id"]):
+        first.setdefault(tuple(rec["bucket"]), rec)
+    out = {}
+    for (b1, b2), rec in sorted(first.items()):
+        c1, c2, n1, n2 = rec["chain1"], rec["chain2"], rec["n1"], rec["n2"]
+        alone = decode(encode_alone(c1, b1), encode_alone(c2, b2), b1, b2, n1, n2)
+        emb = runner.ensure_embeddings(library, [c1, c2])[0]
+        screened = decode(emb[c1][0], emb[c2][0], b1, b2, n1, n2)
+        raw = {"graph1": library[c1].raw, "graph2": library[c2].raw,
+               "examples": np.zeros((0, 3), np.int32)}
+        key, batch = _served_batch(engine, [raw])
+        check(key[:2] == (b1, b2), f"pair {rec['pair_id']}: monolithic key {key[:2]}")
+        with engine._exec_lock:
+            mono = engine._entry(key, (batch.graph1, batch.graph2)).replay(
+                batch.graph1, batch.graph2).cpu().numpy()[0]
+            with torch.inference_mode():
+                plain = serve_forward(plain_model, batch.graph1.to(device),
+                                      batch.graph2.to(device)).cpu().numpy()[0]
+        bitwise = bool(np.array_equal(alone, mono))
+        diff = float(np.abs(alone - mono).max())
+        screened_diff = float(np.abs(screened - mono).max())
+        plain_diff = float(np.abs(alone - plain).max())
+        score_diff = abs(pair_summary(screened[:n1, :n2], 10)["score"] - rec["score"])
+        check(bitwise or diff <= 1e-6,
+              f"split {b1}x{b2} at one slot vs monolithic replay: {diff:.3g} (bitwise or "
+              "<= 1e-6)")
+        check(screened_diff <= SLOT_BAR,
+              f"split {b1}x{b2} from the screen's embeddings vs monolithic replay: "
+              f"{screened_diff:.3g} (bar {SLOT_BAR})")
+        check(bool(np.allclose(alone, plain, rtol=1e-4, atol=1e-4)),
+              f"split {b1}x{b2} vs the plain attention: {plain_diff:.3g} (rtol/atol 1e-4)")
+        check(score_diff <= SLOT_BAR, f"split {b1}x{b2} score vs the screen's: {score_diff:.3g}")
+        out[f"{b1}x{b2}"] = {"pair_id": rec["pair_id"], "bitwise_vs_monolithic": bitwise,
+                             "max_abs_diff_vs_monolithic": diff,
+                             "screen_embeddings_max_abs_diff_vs_monolithic": screened_diff,
+                             "max_abs_diff_vs_plain": plain_diff, "score_diff": score_diff}
+        log(f"  split {b1}x{b2} ({rec['pair_id']}): at one slot vs monolithic replay "
+            f"{'bitwise equal' if bitwise else f'{diff:.3g}'}; from the screen's embeddings "
+            f"{screened_diff:.3g}; vs plain {plain_diff:.3g}; score vs the screen's "
+            f"{score_diff:.3g}")
+    return out
+
+
+def run_split_phase_clis(seed, work, smi) -> dict:
+    """Each split-phase CLI at the flagship width on the card, its last line
+    through tools/check_cli_contract.py: screen, index build and verify,
+    query, assemble, calibrate (ECE lower after the fit), and predict
+    --top_k --calibration with the fitted artifact."""
+    from deepinteract_tpu_torch.cli import assemble, calibrate, index, query, screen
+
+    lib = ["--synthetic_len", "40,60", "--screen_batch", str(SCREEN_BATCH), "--seed", str(seed)]
+    out = {}
+    rec = _check_contract("screen", _run_cli(screen.main, [
+        "--synthetic_chains", "6", *lib, "--out", os.path.join(work, "screen")]))
+    check(rec["pairs_scored"] == 15 and rec["encode_reuse_ratio"] == 5.0, f"screen {rec}")
+    out["screen"] = rec["value"]
+    idx = os.path.join(work, "cli_index")
+    rec = _check_contract("index", _run_cli(index.main, [
+        "build", "--synthetic_chains", "6", *lib, "--index_dir", idx, "--partition_size", "4"]))
+    check(rec["ok"] and rec["encodes_executed"] == 6, f"index build {rec}")
+    rec = _check_contract("index", _run_cli(index.main, ["verify", "--index_dir", idx]))
+    check(rec["ok"] and rec["corrupt"] == 0 and rec["chains"] == 6, f"index verify {rec}")
+    rec = _check_contract("query", _run_cli(query.main, [
+        *lib, "--index_dir", idx, "--query", "syn0001", "--top_m", "3",
+        "--out", os.path.join(work, "query")]))
+    check(rec["pairs_decoded"] == 3 and rec["candidates"] == 5, f"query {rec}")
+    out["query_ms"] = rec["value"]
+    rec = _check_contract("assemble", _run_cli(assemble.main, [
+        "--synthetic_chains", "4", *lib, "--out", os.path.join(work, "assembly")]))
+    check(rec["unique_encodes"] == 4 and rec["pairs_scored"] == 6
+          and rec["control_score"] is not None, f"assemble {rec}")
+    cal_path = os.path.join(work, "calibration.json")
+    rec = _check_contract("calibrate", _run_cli(calibrate.main, [
+        "--synthetic_chains", "8", *lib, "--calibration_out", cal_path]))
+    check(rec["improved"] and rec["ece_calibrated"] < rec["ece_raw"], f"calibrate {rec}")
+    out["calibrate"] = {k: rec[k] for k in ("temperature", "ece_raw", "ece_calibrated", "pairs")}
+    raw = random_raw_complex(100, 80, np.random.default_rng(seed))
+    npz = os.path.join(work, "complex.npz")
+    save_complex_npz(npz, raw["graph1"], raw["graph2"], raw["examples"], "smoke")
+    rec = _check_contract("predict_topk", _run_cli(predict_cli.main, [
+        "--input_npz", npz, "--output_dir", os.path.join(work, "predict"), "--top_k", "10",
+        "--calibration", cal_path, "--seed", str(seed)]))
+    check(rec["top_k"] == 10 and "calibrated_score" in rec, f"predict --top_k {rec}")
+    log(f"  CLIs: screen, index build, index verify, query, assemble, calibrate (ECE "
+        f"{out['calibrate']['ece_raw']:.4f} -> {out['calibrate']['ece_calibrated']:.4f}, "
+        f"T {out['calibrate']['temperature']:.3f}), predict --top_k --calibration: every "
+        "last line accepted by tools/check_cli_contract.py")
+    return out
+
+
+def run_screening(cfg, seed, device, smi) -> dict:
+    """Phase 10: the split phase at the flagship width on the card."""
+    from deepinteract_tpu_torch.assembly import AssemblyConfig, AssemblyRunner
+    from deepinteract_tpu_torch.index import (ChainIndex, IndexedQueryRunner, QueryConfig,
+                                              build_index, verify_index)
+    from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard
+    from deepinteract_tpu_torch.screening import (ChainLibrary, EmbeddingCache, ScreenConfig,
+                                                  ScreenManifest, ScreenRunner, enumerate_pairs)
+    from deepinteract_tpu_torch.screening.library import ChainEntry
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+    from deepinteract_tpu_torch.serving.graphs import WARMUP_RUNS
+
+    log("== phase 10: split phase (screening, index, assembly, calibration; encode and "
+        "decode CUDA graphs, flagship width)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_chains, lo, hi = SCREEN_LIBRARY
+    library = ChainLibrary.synthetic(n_chains, lo, hi, seed=seed + SCREEN_SEED_OFFSET)
+    pairs = enumerate_pairs(library)
+    check(len(pairs) == n_chains * (n_chains - 1) // 2, f"{len(pairs)} pairs")
+    engine = InferenceEngine(cfg, cfg=EngineConfig(max_batch=SCREEN_BATCH, result_cache_size=0),
+                             seed=seed, device=device)
+    buckets = sorted({engine.chain_bucket(c.n) for c in library.chains})
+    check(buckets == list(constants.CHAIN_LENGTH_BUCKETS), f"library buckets {buckets}")
+    cache = EmbeddingCache()
+    screen_cfg = ScreenConfig(top_k=10, decode_batch=SCREEN_BATCH, encode_batch=SCREEN_BATCH)
+    runner = ScreenRunner(engine, cache=cache, cfg=screen_cfg)
+
+    # The main path: counts set to 0 just before the screen, read just after.
+    reset_launches()
+    t0 = time.perf_counter()
+    cold = runner.screen(library, pairs)
+    cold_s = time.perf_counter() - t0
+    counts = launches()
+    stats = engine.stats()
+    inventory = stats["compile_inventory"]
+    per_key = {label: (i["k1_launches"], i["k2_launches"], i["csr_builds"])
+               for label, i in inventory.items()}
+    enc = sorted(label for label in inventory if label.startswith("enc:"))
+    dec = sorted(label for label in inventory if label.startswith("dec:"))
+    check(len(enc) + len(dec) == stats["capture_count"] == len(inventory),
+          f"inventory {sorted(inventory)}")
+    check(all(per_key[label] == ENCODE_COUNTS for label in enc),
+          f"encode captures counted {[per_key[l] for l in enc]}, expected {ENCODE_COUNTS}")
+    check(all(per_key[label] == (0, 0, 0) for label in dec),
+          f"decode captures counted {[per_key[l] for l in dec]}")
+    # The counters run at the warm-up runs before each capture and at the
+    # capture, never at a replay.
+    runs = (1 + WARMUP_RUNS) * len(enc)
+    check(counts == (ENCODE_COUNTS[0] * runs, 0, ENCODE_COUNTS[2] * runs),
+          f"screen launches {counts} for {len(enc)} encode captures of {WARMUP_RUNS} warm-up "
+          "runs each")
+    check(cold.encodes_executed == n_chains and cold.pairs_scored == len(pairs)
+          and not cold.preempted, f"cold screen {cold.summary()}")
+    enc_replays = sum(inventory[label]["replays"] for label in enc)
+    captures = stats["capture_count"]
+    log(f"  {n_chains} chains (buckets {buckets}), {len(pairs)} pairs: {cold.encodes_executed} "
+        f"encodes in {cold.encode_batches} batches, {cold.decode_batches} decode batches; "
+        f"{len(enc)} encode captures, each (K1, K2, CSR builds) {ENCODE_COUNTS}; {len(dec)} "
+        f"decode captures; screen launches {counts}; {cold_s:.3f} s cold")
+
+    before = {label: i["replays"] for label, i in engine.stats()["compile_inventory"].items()}
+    t0 = time.perf_counter()
+    warm = runner.screen(library, pairs)
+    warm_s = time.perf_counter() - t0
+    warm_replays = {label: i["replays"] - before[label]
+                    for label, i in engine.stats()["compile_inventory"].items()}
+    check(warm.encodes_executed == 0 and warm.encode_cache_hits == n_chains
+          and engine.capture_count == captures,
+          f"warm repeat: {warm.encodes_executed} encodes, {warm.encode_cache_hits} hits, "
+          f"{engine.capture_count - captures} captures")
+    check([(r["pair_id"], r["score"]) for r in warm.records]
+          == [(r["pair_id"], r["score"]) for r in cold.records],
+          "the warm repeat's records differ from the cold screen's")
+    log(f"  warm repeat: 0 encodes, {warm.encode_cache_hits} cache hits, 0 captures, records "
+        f"equal; {warm_s:.3f} s")
+
+    enc_key = next(k for k in engine._entries if k[0] == "enc")
+    prof = profile_graph(engine, engine._entries[enc_key])
+    check(prof["k1"] == ENCODE_COUNTS[0],
+          f"profiled encode replay: {prof['k1']} K1 kernels of {prof['kernels']}")
+    log(f"  profiled encode replay {engine._key_label(enc_key)}: {prof['k1']} K1 kernels among "
+        f"{prof['kernels']} device kernels")
+
+    plain_model = load_model(plain_variant(cfg), device, seed=seed)
+    plain_model.load_state_dict(engine.model.state_dict())
+    split_checks = check_split_pairs(engine, runner, plain_model, library, cold.records, device)
+    del plain_model
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_screen_") as work:
+        # A manifest-backed screen preempted by its guard, then resumed.
+        path = os.path.join(work, "manifest.json")
+        m1, _ = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
+        guard = PreemptionGuard(log=lambda msg: None)
+        r1 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
+            library, pairs, manifest=m1, guard=guard,
+            after_batch=lambda n: guard.request("smoke") if n == SCREEN_PREEMPT_AT else None)
+        m2, resumed = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
+        r2 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
+            library, pairs, manifest=m2, guard=PreemptionGuard(log=lambda msg: None))
+        check(r1.preempted and resumed and r1.decode_batches == SCREEN_PREEMPT_AT
+              and 0 < r1.pairs_scored < len(pairs)
+              and r1.pairs_scored + r2.pairs_scored == len(pairs)
+              and r2.pairs_resumed == r1.pairs_scored and not r2.preempted,
+              f"preempted {r1.summary()} resumed {r2.summary()}")
+        ref = {r["pair_id"]: r for r in cold.records}
+        resume_diff, resume_bitwise = 0.0, 0
+        check({r["pair_id"] for r in r2.records} == set(ref), "the resumed records' pairs")
+        for rec in r2.records:
+            want = ref[rec["pair_id"]]
+            check((rec["chain1"], rec["chain2"], rec["bucket"]) == (
+                want["chain1"], want["chain2"], want["bucket"]), f"orientation {rec['pair_id']}")
+            resume_diff = max(resume_diff, abs(rec["score"] - want["score"]))
+            resume_bitwise += rec["score"] == want["score"]
+        check(resume_diff <= SLOT_BAR, f"resumed scores vs uninterrupted: {resume_diff:.3g}")
+        log(f"  preempted after {r1.pairs_scored} pairs, resumed: {r2.pairs_scored} more, "
+            f"{r2.pairs_resumed} from the manifest; scores vs the uninterrupted screen "
+            f"{resume_bitwise}/{len(pairs)} bitwise, max |diff| {resume_diff:.3g} (bar "
+            f"{SLOT_BAR})")
+
+        # An index over the library (the screen's cached embeddings), and
+        # queries of two chains whose scores are the screen's rows.
+        index_dir = os.path.join(work, "index")
+        built = build_index(engine, library, index_dir, partition_size=8,
+                            encode_batch=SCREEN_BATCH, cache=cache)
+        report = verify_index(index_dir)
+        check(report["ok"] and report["chains"] == n_chains and not built.preempted,
+              f"index verify {report}")
+        index = ChainIndex.open(index_dir)
+        qrunner = IndexedQueryRunner(engine, index, cfg=QueryConfig(
+            top_m=8, top_k=10, decode_batch=SCREEN_BATCH))
+        query_diff = 0.0
+        t0 = time.perf_counter()
+        for q in library.ids()[:2]:
+            res = qrunner.query_from_index(q)
+            check(res.survivors == res.pairs_decoded == 8 and res.candidates == n_chains - 1,
+                  f"query {q}: {res.summary()}")
+            for rec in res.records:
+                want = ref[rec["pair_id"]]
+                check((rec["chain1"], rec["chain2"]) == (want["chain1"], want["chain2"]),
+                      f"query orientation {rec['pair_id']}")
+                query_diff = max(query_diff, abs(rec["score"] - want["score"]))
+        query_s = (time.perf_counter() - t0) / 2
+        check(query_diff <= SLOT_BAR, f"query scores vs the screen's rows: {query_diff:.3g}")
+        log(f"  index: {built.partitions_total} partitions, verify ok; 2 queries (top_m 8) of "
+            f"{index.num_chains - 1} candidates, scores vs the screen's rows max |diff| "
+            f"{query_diff:.3g} (bar {SLOT_BAR}), {query_s * 1e3:.3f} ms each")
+
+        # A 4-chain assembly with one chain twice (under a second id).
+        a, b, c = library.chains[:3]
+        asm_lib = ChainLibrary([a, b, c, ChainEntry(f"{a.chain_id}_twin", a.raw, a.n)])
+        assembly = AssemblyRunner(engine, cache=EmbeddingCache(), cfg=AssemblyConfig(
+            decode_batch=SCREEN_BATCH, encode_batch=SCREEN_BATCH)).assemble(asm_lib)
+        check(assembly.unique_encodes == 3 and assembly.pairs_scored == 6
+              and assembly.control_score is not None, f"assembly {assembly.summary()}")
+        log(f"  assembly of 4 chains (one twice): {assembly.unique_encodes} encodes, "
+            f"{assembly.pairs_scored} pairs, interactability {assembly.interactability:.6f}, "
+            f"control {assembly.control_score:.6f}")
+        clis = run_split_phase_clis(seed, work, smi)
+
+    # Times: each graph's replay (device, CUDA events) per chain and per
+    # pair; the screen's pairs per second; the same pairs through predict.
+    encode_ms, decode_ms, replay_ms = {}, {}, {}
+    for key, entry in sorted(engine._entries.items(), key=lambda kv: str(kv[0])):
+        if key[0] in ("enc", "dec"):
+            label = engine._key_label(key)
+            replay_ms[label] = _graph_ms(entry)
+            (encode_ms if key[0] == "enc" else decode_ms)[label] = replay_ms[label] / key[3]
+    # The warm screen's device time: its replays of each key times the
+    # key's replay time (it encodes nothing).
+    warm_device_s = sum(n * replay_ms[label] for label, n in warm_replays.items() if n) / 1e3
+    naive = pairs[::len(pairs) // SCREEN_NAIVE_PAIRS][:SCREEN_NAIVE_PAIRS]
+    naive_raws = [{"graph1": library[c1].raw, "graph2": library[c2].raw,
+                   "examples": np.zeros((0, 3), np.int32)} for c1, c2 in naive]
+    for raw in naive_raws:  # warm every key first: captures are not timed
+        engine.predict(raw)
+    t0 = time.perf_counter()
+    for raw in naive_raws:
+        engine.predict(raw)
+    naive_s = time.perf_counter() - t0
+    times = {"encode_ms_per_chain": encode_ms, "decode_ms_per_pair": decode_ms,
+             "screen_cold_s": cold_s, "screen_warm_s": warm_s,
+             "screen_warm_device_s": warm_device_s,
+             "screen_warm_device_share": warm_device_s / warm_s,
+             "screen_cold_pairs_per_s": len(pairs) / cold_s,
+             "screen_warm_pairs_per_s": len(pairs) / warm_s,
+             "predict_pairs": len(naive), "predict_s": naive_s,
+             "predict_pairs_per_s": len(naive) / naive_s,
+             "query_ms": query_s * 1e3,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    for label, ms in encode_ms.items():
+        log(f"  encode {label}: {ms:.3f} ms per chain (replay device time / slots)")
+    for label, ms in decode_ms.items():
+        log(f"  decode {label}: {ms:.3f} ms per pair (replay device time / slots)")
+    log(f"  screen of {len(pairs)} pairs: cold {cold_s:.3f} s ({len(pairs) / cold_s:.2f} pairs/s, "
+        f"captures included), warm {warm_s:.3f} s ({len(pairs) / warm_s:.2f} pairs/s, of which "
+        f"replay device time {warm_device_s:.3f} s); "
+        f"{len(naive)} of its pairs through engine.predict (warm) {naive_s:.3f} s "
+        f"({len(naive) / naive_s:.2f} pairs/s); peak {times['peak_gib']:.3f} GiB; [{smi}]")
+    engine.close()
+    del engine, runner, cache
+    torch.cuda.empty_cache()
+    return {"chains": n_chains, "pairs": len(pairs), "buckets": buckets,
+            "launches": counts, "encode_captures": len(enc), "decode_captures": len(dec),
+            "per_encode_capture": ENCODE_COUNTS, "encode_replays": enc_replays,
+            "captures": captures, "encodes": cold.encodes_executed,
+            "warm_cache_hits": warm.encode_cache_hits, "profiled_encode_replay": prof,
+            "split_checks": split_checks, "resume_max_diff": resume_diff,
+            "resume_bitwise": resume_bitwise, "query_max_diff": query_diff,
+            "assembly": assembly.summary(), "clis": clis, "times": times}
 
 
 def main(argv=None) -> int:
@@ -2040,6 +2498,8 @@ def main(argv=None) -> int:
     supervisor = run_supervisor(args.seed)
     serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
                           device, smi)
+    serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
+    screening = run_screening(cfg, args.seed, device, smi)
     log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                   if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
@@ -2058,7 +2518,12 @@ def main(argv=None) -> int:
                                      **{path: configs[path]["launches"][2]
                                         for path in config_paths},
                                      **{path: c[2] for path, c in more_paths.items()},
-                                     "serve_per_capture": serving["per_capture"][2]},
+                                     "serve_per_capture": serving["per_capture"][2],
+                                     **{f"serve_{name}_per_capture": c["per_capture"][2]
+                                        for name, c in serving["configs"].items()},
+                                     "screen": screening["launches"][2],
+                                     "screen_encode_per_capture":
+                                         screening["per_encode_capture"][2]},
               "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
                              ("tiled_two", "deeplab"))},
                          "importer": {k: v for k, v in importer.items() if k != "launches"},
@@ -2091,7 +2556,15 @@ def main(argv=None) -> int:
                              # Served: counted at each capture (the Python counter does
                              # not run at replay), and the replays of every entry.
                              "serve_per_capture": serving["per_capture"][0],
-                             "serve_replays": serving["replays"]},
+                             "serve_replays": serving["replays"],
+                             **{f"serve_{name}_per_capture": c["per_capture"][0]
+                                for name, c in serving["configs"].items()},
+                             # Phase 10: counted around the screen (at each encode
+                             # capture), per encode capture, and the encode replays.
+                             "screen": screening["launches"][0],
+                             "screen_encode_per_capture": screening["per_encode_capture"][0],
+                             "screen_encode_replays": screening["encode_replays"]},
+        "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
         "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
         "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
         "ms_by_head_dim": {k: t["k1_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -2112,7 +2585,11 @@ def main(argv=None) -> int:
                                 for path in LIFECYCLE_PATHS},
                              **{path: configs[path]["launches"][1] for path in config_paths},
                              **{path: c[1] for path, c in more_paths.items()},
-                             "serve_per_capture": serving["per_capture"][1]},
+                             "serve_per_capture": serving["per_capture"][1],
+                             **{f"serve_{name}_per_capture": c["per_capture"][1]
+                                for name, c in serving["configs"].items()},
+                             "screen": screening["launches"][1],
+                             "screen_encode_per_capture": screening["per_encode_capture"][1]},
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
         "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -2129,6 +2606,7 @@ def main(argv=None) -> int:
         **common,
     }]
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"screening": screening}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -228,6 +228,119 @@ def add_serving_args(p: argparse.ArgumentParser) -> None:
                    help="heartbeat write cadence for --heartbeat_file")
 
 
+def add_screening_args(p: argparse.ArgumentParser) -> None:
+    """Bulk-screening surface (cli/screen.py; deepinteract_tpu_torch.screening)."""
+    g = p.add_argument_group("screening")
+    g.add_argument("--chains_npz_dir", type=str, default=None,
+                   help="directory of complex .npz files; each contributes "
+                        "its two chains (<stem>:g1, <stem>:g2) to the "
+                        "library")
+    g.add_argument("--chains_pack_dir", type=str, default=None,
+                   help="pre-padded memmap pack (data/packed.py) to split "
+                        "into library chains")
+    g.add_argument("--synthetic_chains", type=int, default=0,
+                   help="generate N deterministic synthetic chains instead "
+                        "of reading a library (smoke tests / benches)")
+    g.add_argument("--synthetic_len", type=str, default="24,48",
+                   help="LO,HI residue-count range for --synthetic_chains")
+    g.add_argument("--query", type=str, default=None,
+                   help="comma list of chain ids: score query-vs-library "
+                        "instead of all-vs-all")
+    g.add_argument("--include_self", action="store_true",
+                   help="score the diagonal too (homodimer screening)")
+    g.add_argument("--max_pairs", type=int, default=0,
+                   help="truncate the pair list (0 = score everything)")
+    g.add_argument("--top_k", type=int, default=10,
+                   help="contact probabilities per pair summary; the "
+                        "ranking score is their mean "
+                        "(screening/scoring.py — the same helper behind "
+                        "predict --top_k)")
+    g.add_argument("--screen_batch", type=int, default=8,
+                   help="pairs per decode dispatch (and chains per "
+                        "encoder dispatch)")
+    g.add_argument("--emb_cache_entries", type=int, default=4096,
+                   help="in-memory embedding-cache capacity (chains)")
+    g.add_argument("--emb_cache_dir", type=str, default=None,
+                   help="spill directory for embeddings evicted from "
+                        "memory (npz per chain; reloaded transparently)")
+    g.add_argument("--out", type=str, default="screen_out",
+                   help="output prefix: <out>.jsonl (ranked records) and "
+                        "<out>.csv are written; the manifest defaults to "
+                        "<out>.manifest.json")
+    g.add_argument("--manifest", type=str, default=None,
+                   help="progress-ledger path (atomic per-batch flush; an "
+                        "existing matching manifest resumes the screen)")
+
+
+def add_calibration_args(p: argparse.ArgumentParser) -> None:
+    """Calibration-consumption surface shared by predict/screen/query/
+    assemble (deepinteract_tpu_torch.calibration): point any scoring
+    entry point at a fitted artifact and calibrated probabilities ride
+    NEXT TO the raw ones (never instead of them)."""
+    g = p.add_argument_group("calibration")
+    g.add_argument("--calibration", type=str, default=None,
+                   help="fitted calibration artifact (cli/calibrate.py "
+                        "output); verified against the served weights' "
+                        "signature before use — a map fitted for other "
+                        "weights is refused as stale")
+    g.add_argument("--allow_stale_calibration", action="store_true",
+                   help="apply a calibration whose weights_signature "
+                        "does not match the engine (integrity is still "
+                        "verified; the probabilities may be garbage — "
+                        "format debugging only)")
+
+
+def add_assembly_args(p: argparse.ArgumentParser) -> None:
+    """k-chain assembly surface (cli/assemble.py;
+    deepinteract_tpu_torch.assembly)."""
+    g = p.add_argument_group("assembly")
+    g.add_argument("--edge_threshold", type=float, default=0.5,
+                   help="interface-graph edge cut: pairs whose "
+                        "calibrated interaction score (raw score when "
+                        "no --calibration) reaches this become edges")
+    g.add_argument("--no_control", action="store_true",
+                   help="skip the input_indep control pass (the zeroed-"
+                        "features honesty baseline reported next to "
+                        "every assembly score)")
+    g.add_argument("--no_maps", action="store_true",
+                   help="do not persist the per-pair contact maps "
+                        "(<out>.npz); rankings and the interface graph "
+                        "are still written")
+
+
+def add_index_args(p: argparse.ArgumentParser) -> None:
+    """Proteome-index surface (cli/index.py, cli/query.py;
+    deepinteract_tpu_torch.index)."""
+    g = p.add_argument_group("proteome index")
+    g.add_argument("--index_dir", type=str, default="index_out",
+                   help="index directory: build/merge target, "
+                        "verify/query source (manifest + partitions/)")
+    g.add_argument("--partition_size", type=int, default=64,
+                   help="chains per index partition shard (the build's "
+                        "exactly-once unit of work)")
+    g.add_argument("--merge_from", action="append", default=None,
+                   metavar="DIR",
+                   help="source index for 'merge' (repeat per source; "
+                        "all must share the embedding identity and be "
+                        "chain-disjoint)")
+    g.add_argument("--top_m", type=int, default=32,
+                   help="pre-filter survivors handed to the decoder per "
+                        "query (the funnel neck; index/prefilter.py)")
+    g.add_argument("--allow_stale", action="store_true",
+                   help="query an index whose weights_signature no "
+                        "longer matches the engine (rankings may be "
+                        "garbage; meant for format debugging only)")
+
+
+def add_engine_args(p: argparse.ArgumentParser) -> None:
+    """What a split-phase CLI (screen, index, query, assemble, calibrate)
+    builds its engine from: the bucket flags, a checkpoint or JAX weights."""
+    add_bucket_args(p)
+    add_restore_args(p)
+    p.add_argument("--weights", type=str, default=None,
+                   help="flat-path .npz of JAX variables (weights.save_npz)")
+
+
 def add_restore_args(p) -> None:
     """The flags that name a checkpoint to restore (train, test, predict)."""
     p.add_argument("--ckpt_name", type=str, default=None,

@@ -7,14 +7,21 @@ Port of ``deepinteract_tpu/cli/predict.py`` for ``--input_npz``. Writes
 * ``graph1_edge_feats.npy`` / ``graph2_edge_feats.npy`` (not with the GCN
   encoder, which learns no edge features)
 
-into ``--output_dir``. ``--weights`` takes a flat-path ``.npz`` of JAX
+into ``--output_dir``; with ``--top_k K`` also ``top_contacts.json``, the
+K most probable contacts ranked by ``screening.scoring.pair_summary`` (the
+helper bulk screening ranks with), and a last stdout line that is the
+``predict_topk`` contract (``tools/check_cli_contract.py``);
+``--calibration`` adds calibrated probabilities next to the raw ones
+(a fitted artifact of ``cli.calibrate``, refused when it was fitted for
+other weights). ``--weights`` takes a flat-path ``.npz`` of JAX
 variables (``weights.save_npz``); ``--ckpt_name`` a checkpoint directory
 of the port's trainer, whose best/ step is restored; with neither the
 model gets the port's seeded init. Runs on the GPU unless ``--device
 cpu`` is given.
 
     python -m deepinteract_tpu_torch.cli.predict --input_npz X --output_dir Y \
-        [--weights W.npz | --ckpt_name DIR] [--device cpu]
+        [--weights W.npz | --ckpt_name DIR] [--top_k 10 [--calibration C.json]] \
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,8 +33,8 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from deepinteract_tpu_torch.cli.args import (add_restore_args, build_parser,
-                                             model_config_from_args)
+from deepinteract_tpu_torch.cli.args import (add_calibration_args, add_restore_args,
+                                             build_parser, model_config_from_args)
 from deepinteract_tpu_torch.data.graph import stack_complexes
 from deepinteract_tpu_torch.data.io import load_complex_npz, to_paired_complex
 from deepinteract_tpu_torch.device import resolve_device
@@ -95,10 +102,27 @@ def main(argv=None) -> int:
     parser.add_argument("--output_dir", type=str, default=".")
     parser.add_argument("--weights", type=str, default=None,
                         help="flat-path .npz of JAX variables (weights.save_npz)")
+    parser.add_argument("--top_k", type=int, default=0,
+                        help="also rank the K most probable contacts (screening.scoring."
+                             "pair_summary, as bulk screening ranks): writes "
+                             "top_contacts.json and makes the last stdout line a "
+                             "machine-readable JSON summary")
     add_restore_args(parser)
+    add_calibration_args(parser)
     args = parser.parse_args(argv)
     if args.weights and args.ckpt_name:
         parser.error("give --weights or --ckpt_name, not both")
+    cal = None
+    if args.calibration:
+        # Verified before the model is built: a stale or corrupt artifact
+        # is refused in milliseconds. The signature is the engine's
+        # weights_signature for the same flags.
+        from deepinteract_tpu_torch.calibration import load_calibration
+
+        cal = load_calibration(
+            args.calibration,
+            expect_signature=args.ckpt_name or args.weights or f"init-seed{args.seed}",
+            allow_stale=args.allow_stale_calibration)
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
@@ -117,7 +141,45 @@ def main(argv=None) -> int:
         np.save(path, out[name])
         saved.append(path)
     print("saved:", ", ".join(saved))
+    if args.top_k > 0:
+        write_top_contacts(args, out, cal)
     return 0
+
+
+def write_top_contacts(args, out: Dict[str, np.ndarray], cal) -> None:
+    """``top_contacts.json`` and the ``predict_topk`` contract line."""
+    import json
+
+    from deepinteract_tpu_torch.robustness import artifacts
+    from deepinteract_tpu_torch.screening.scoring import pair_summary
+
+    probs = out["contact_prob_map"]
+    summary = pair_summary(probs, args.top_k)
+    if cal is not None:
+        # Calibrated probabilities ride NEXT TO the raw ones: the raw
+        # score / max_prob / p keys never change meaning.
+        ps = np.asarray([c["p"] for c in summary["top_contacts"]], dtype=np.float64)
+        cal_ps = cal.apply(ps)
+        for c, p_cal in zip(summary["top_contacts"], cal_ps):
+            c["p_cal"] = round(float(p_cal), 6)
+        summary["calibrated_score"] = round(float(cal_ps.mean()), 6)
+        summary["calibration"] = args.calibration
+    contacts_path = os.path.join(args.output_dir, "top_contacts.json")
+    artifacts.atomic_write(contacts_path, json.dumps(summary, indent=1))
+    line = {
+        "metric": "pair_score_topk_mean",
+        "value": round(summary["score"], 6),
+        "unit": "probability",
+        "top_k": summary["top_k"],
+        "max_prob": round(summary["max_prob"], 6),
+        "n1": int(probs.shape[0]), "n2": int(probs.shape[1]),
+        "top_contacts_out": contacts_path,
+        "contact_map_out": os.path.join(args.output_dir, "contact_prob_map.npy"),
+    }
+    if cal is not None:
+        line["calibrated_score"] = summary["calibrated_score"]
+        line["calibration"] = args.calibration
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -65,13 +65,11 @@ def main(argv=None, guard=None) -> int:
     from deepinteract_tpu_torch.obs import spans as obs_spans
     from deepinteract_tpu_torch.serving import (EngineConfig, InferenceEngine,
                                                 ServingServer, ShedderConfig)
-    from deepinteract_tpu_torch.serving.engine import check_capturable
 
     model_cfg = model_config_from_args(args)
     try:
-        check_capturable(model_cfg, args.device)
         device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as err:
+    except RuntimeError as err:
         print(f"serve: {err}", file=sys.stderr)
         return 2
 

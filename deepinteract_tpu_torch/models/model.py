@@ -85,10 +85,15 @@ class GCNStack(nn.Module):
     layers. Both norms are rsqrt(max(degree, 1e-9)) over unweighted valid
     edge counts (out-degree at the source, in-degree at the destination).
 
-    Messages are summed into their destinations by a gather over the
+    Messages are summed into their destinations in the order of the
     in-edge CSR (``ops.cuda_attention.in_edge_csr``, one build per
-    forward) and a sum over each destination's slots in edge-id order: a
-    fixed order, deterministic on the card, unlike ``index_add_``.
+    forward): the edges sorted by destination form one contiguous segment
+    per destination, and a segmented inclusive scan (log2(N*K) shifted
+    adds, each masked to its own segment) leaves every segment's sum at
+    its last position. Every shape follows from the graph's shapes alone,
+    and nothing is read on the host, so the forward captures as a CUDA
+    graph; the sums use no atomics and are bitwise repeatable (unlike
+    ``index_add_``), and a hub of any in-degree is summed whole.
     Returns ``(node_feats, None)``: the GCN learns no edge features."""
 
     def __init__(self, cfg: GTConfig):
@@ -103,26 +108,34 @@ class GCNStack(nn.Module):
         e_mask = graph.edge_mask().to(node_feats.dtype)                    # [B, N, K]
         w = (graph.edge_feats[..., C.EDGE_WEIGHT].to(node_feats.dtype) * e_mask).reshape(b, n * kk)
         in_ptr, in_eid = in_edge_csr(graph.nbr_idx)
-        deg = (in_ptr[:, 1:] - in_ptr[:, :-1]).long()                      # [B, N]
-        slots = torch.arange(int(deg.max()), device=deg.device)
-        valid = slots < deg[..., None]                                     # [B, N, S]
-        pos = (in_ptr[:, :-1, None].long() + slots).clamp(max=n * kk - 1)
-        eid = torch.gather(in_eid.long(), 1, pos.reshape(b, -1)).reshape(pos.shape)
-        eid = torch.where(valid, eid, 0)
+        eid = in_eid.long()                                                # [B, P] by destination
+        dst = torch.gather(graph.nbr_idx.reshape(b, -1).long(), 1, eid)   # nondecreasing
         src = eid // kk
+        p = n * kk
+        spans = []
+        span = 1
+        while span < p:  # the scan's steps: (shift, same-segment mask)
+            spans.append((span, (dst[:, span:] == dst[:, :-span])[..., None]))
+            span *= 2
+        last = (in_ptr[:, 1:].long() - 1).clamp(min=0)[..., None]         # [B, N, 1]
+        has_in = (in_ptr[:, 1:] > in_ptr[:, :-1])[..., None]               # [B, N, 1]
 
-        def into_dst(edge_vals):  # [B, N*K] per edge -> [B, N, S], 0 off the slots
-            return torch.gather(edge_vals, 1, eid.reshape(b, -1)).reshape(eid.shape) * valid
+        def into_dst(vals):  # [B, P, C] in CSR order -> [B, N, C] per-destination sums
+            for shift, same in spans:
+                vals = torch.cat([vals[:, :shift],
+                                  vals[:, shift:] + torch.where(same, vals[:, :-shift], 0)], 1)
+            return torch.gather(vals, 1, last.expand(-1, -1, vals.shape[-1])) * has_in
 
         norm_src = torch.rsqrt(torch.clamp(e_mask.sum(-1), min=1e-9))     # out-degree
-        norm_dst = torch.rsqrt(torch.clamp(into_dst(e_mask.reshape(b, -1)).sum(-1), min=1e-9))
-        w_in = into_dst(w)[..., None]                                      # [B, N, S, 1]
-        batch = torch.arange(b, device=src.device)[:, None, None]
+        in_deg = into_dst(torch.gather(e_mask.reshape(b, -1), 1, eid)[..., None])[..., 0]
+        norm_dst = torch.rsqrt(torch.clamp(in_deg, min=1e-9))
+        w_in = torch.gather(w, 1, eid)[..., None]                          # [B, P, 1]
+        batch = torch.arange(b, device=src.device)[:, None]
         node_mask = graph.node_mask[..., None].to(node_feats.dtype)
         h = node_feats
         for i in range(self.cfg.num_layers):
             hn = getattr(self, f"gcn_{i}")(h) * norm_src[..., None]
-            h = (hn[batch, src] * w_in).sum(2) * norm_dst[..., None]
+            h = into_dst(hn[batch, src] * w_in) * norm_dst[..., None]
             h = (h + getattr(self, f"gcn_bias_{i}").to(h.dtype)) * node_mask
         return h, None
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -130,11 +131,35 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[:, None], weights, 0.0)
 
 
+_DEVICE_MATRICES: dict = {}
+_DEVICE_MATRICES_LOCK = threading.Lock()
+
+
+def device_resize_matrix(in_size: int, out_size: int, dtype: torch.dtype,
+                         device: torch.device) -> torch.Tensor:
+    """:func:`resize_matrix` as a tensor on ``device``, built once per
+    ``(in, out, dtype, device)`` and kept. The first call at a shape copies
+    it from the host; every later call reads the kept tensor and copies
+    nothing, so a CUDA graph captured after a warm-up run at its shapes
+    (``serving/graphs.py``) replays without touching host memory. Made
+    outside inference mode, so that a training step may save it for its
+    backward after an inference-mode forward made it."""
+    key = (int(in_size), int(out_size), dtype, torch.device(device))
+    with _DEVICE_MATRICES_LOCK:
+        mat = _DEVICE_MATRICES.get(key)
+        if mat is None:
+            with torch.inference_mode(False):
+                mat = torch.as_tensor(resize_matrix(key[0], key[1]), dtype=dtype,
+                                      device=device)
+            _DEVICE_MATRICES[key] = mat
+    return mat
+
+
 def bilinear_resize(x: torch.Tensor, hw) -> torch.Tensor:
     """``jax.image.resize(x, ..., "bilinear")`` of x [B, C, h, w] to
     [B, C, H, W]: a product along W, then one along H."""
     h, w = x.shape[2:]
-    mh, mw = (torch.as_tensor(resize_matrix(int(n), int(m)), dtype=x.dtype, device=x.device)
+    mh, mw = (device_resize_matrix(n, m, x.dtype, x.device)
               for n, m in ((h, hw[0]), (w, hw[1])))
     return torch.matmul(mh, torch.matmul(x, mw.t()))
 

@@ -24,14 +24,21 @@ pays the setup once and answers every request with one graph replay:
   share one dispatch (``serving/scheduler.py``), and an LRU result cache
   (``serving/cache.py``) short-circuits repeated complexes.
 
+* **split phase** (bulk screening, ``screening/``): the siamese forward
+  split at ``DeepInteract.encode`` / ``decode``, as two more kinds of key
+  in the same inventory: one graph per (chain bucket, shape signature,
+  slots) encode and one per (bucket1, bucket2, slots) decode
+  (:meth:`InferenceEngine.encode_executable`,
+  :meth:`InferenceEngine.decode_executable`), so N chains cost N encodes
+  and N^2 decodes instead of N^2 whole forwards.
+
 On the CPU (``device="cpu"``) the same engine runs each dispatch eagerly
 through the plain attention; nothing is captured there. On the card every
 key is captured or the dispatch raises ``BatchExecutionError(stage=
-"compile")``: no key is ever served eagerly. The configurations that do
-not capture yet (see :func:`check_capturable`) are refused at
-construction on the card. The mesh placement, the
-tuning store and the split-phase (encode / decode) entries of the JAX
-engine are not ported yet.
+"compile")``: no key is ever served eagerly. Every model configuration
+captures (the GCN encoder, the DeepLab decoder, tiled decoding, regional
+attention). The mesh placement and the tuning store of the JAX engine
+are not ported.
 
 ``predict()`` is the blocking convenience wrapper over ``submit()``.
 """
@@ -52,7 +59,7 @@ import torch
 
 from deepinteract_tpu_torch import constants
 from deepinteract_tpu_torch.cli.predict import load_model
-from deepinteract_tpu_torch.data.graph import stack_complexes
+from deepinteract_tpu_torch.data.graph import ProteinGraph, stack_complexes
 from deepinteract_tpu_torch.data.io import complex_lengths, to_paired_complex
 from deepinteract_tpu_torch.data.loader import make_bucket_fn
 from deepinteract_tpu_torch.data.synthetic import random_complex
@@ -70,7 +77,8 @@ from deepinteract_tpu_torch.serving.admission import (
     expired_counter,
 )
 from deepinteract_tpu_torch.serving.cache import ResultCache, content_hash
-from deepinteract_tpu_torch.serving.graphs import make_entry
+from deepinteract_tpu_torch.serving.graphs import (decode_forward, encode_forward, make_entry,
+                                                   serve_forward)
 from deepinteract_tpu_torch.serving.scheduler import MicroBatchScheduler
 
 logger = logging.getLogger(__name__)
@@ -134,22 +142,12 @@ def batch_slots(n_requests: int, max_batch: int) -> int:
     return min(slots, max(1, int(max_batch)))
 
 
-def check_capturable(model_cfg: ModelConfig, device=None) -> None:
-    """Refuse, for the card, a configuration whose forward cannot be
-    captured as a CUDA graph yet (ROADMAP.md queue 3, F5): the GCN encoder
-    reads its largest in-degree on the host, and the DeepLab decoder copies
-    its resize matrices from pageable host memory. The CPU serves both."""
-    if torch.device("cuda" if device is None else device).type != "cuda":
-        return
-    refused = [name for name, on in (
-        ("the GCN encoder (--gnn_layer_type gcn)", model_cfg.gnn_layer_type == "gcn"),
-        ("the DeepLab decoder (--interact_module_type deeplab)",
-         model_cfg.interact_module_type == "deeplab")) if on]
-    if refused:
-        raise ValueError(
-            f"{' and '.join(refused)} cannot be captured as a CUDA graph yet (ROADMAP.md "
-            "queue 3, F5), so the engine does not serve it on the card; use device='cpu' "
-            "(--device cpu)")
+def _as_tensor(x) -> torch.Tensor:
+    """A host array as a tensor; a read-only array (a cached embedding) is
+    copied, since torch tensors cannot be read-only."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()
+    return torch.as_tensor(x)
 
 
 def _state_digest(model) -> str:
@@ -168,8 +166,7 @@ class InferenceEngine:
     port's trainer (its best/ step is served), ``weights`` a flat-path
     ``.npz`` or a ``{"params", "batch_stats"}`` tree of JAX variables;
     with neither the engine serves the seeded init. ``device`` defaults
-    to ``cuda`` (``device.resolve_device``: raises without a GPU); on the
-    card, :func:`check_capturable` refuses what does not capture yet."""
+    to ``cuda`` (``device.resolve_device``: raises without a GPU)."""
 
     def __init__(
         self,
@@ -182,7 +179,6 @@ class InferenceEngine:
         weights: Union[str, Mapping, None] = None,
     ):
         base = model_cfg or ModelConfig()
-        check_capturable(base, device)
         self.device = resolve_device(device)
         self.cfg = cfg
         if not base.tile_pair_map:
@@ -280,17 +276,17 @@ class InferenceEngine:
         with self._labels_lock:
             return list(self._warm_labels)
 
-    def _entry(self, key: Tuple, batch):
-        """The key's entry; a cold key is captured from ``batch`` (its
-        shapes, and the data of the warm-up runs). The caller holds
-        ``_exec_lock``. A failed capture raises
+    def _entry(self, key: Tuple, inputs: Tuple, fn=serve_forward):
+        """The key's entry; a cold key is captured from ``fn(model,
+        *inputs)`` (its shapes, and the data of the warm-up runs). The
+        caller holds ``_exec_lock``. A failed capture raises
         ``BatchExecutionError(stage="compile")``."""
         entry = self._entries.get(key)
         if entry is not None:
             return entry
         _COMPILE_INFLIGHT.inc()
         try:
-            entry = make_entry(self.model, batch.graph1, batch.graph2, self._pool)
+            entry = make_entry(self.model, inputs, self._pool, fn)
         except Exception as exc:
             raise BatchExecutionError(f"CUDA graph capture of {self._key_label(key)} "
                                       f"failed: {exc}", stage="compile") from exc
@@ -306,6 +302,14 @@ class InferenceEngine:
 
     @staticmethod
     def _key_label(key: Tuple) -> str:
+        """The JAX engine's inventory labels: ``{b1}x{b2}/b{slots}/k{K}g{G}``
+        for a request key, ``enc:{bucket}/b{slots}/k{K}g{G}`` and
+        ``dec:{b1}x{b2}/b{slots}`` for the split phase."""
+        if key[0] == "enc":
+            _, bucket, sig, slots = key
+            return f"enc:{bucket}/b{slots}/k{sig[0]}g{sig[1]}"
+        if key[0] == "dec":
+            return "dec:{}x{}/b{}".format(*key[1:])
         b1, b2, sig1, sig2, bs = key
         label = f"{b1}x{b2}/b{bs}/k{sig1[0]}g{sig1[1]}"
         if sig2 != sig1:
@@ -339,7 +343,50 @@ class InferenceEngine:
                  int(g.node_feats.shape[-1]), int(g.edge_feats.shape[-1]))
                 for g in (one.graph1, one.graph2))
             with self._exec_lock:
-                self._entry((b1, b2) + sig + (bs,), batch)
+                self._entry((b1, b2) + sig + (bs,), (batch.graph1, batch.graph2))
+
+    # -- split phase (bulk screening) --------------------------------------
+    #
+    # The model is siamese (one shared-weight encoder leg per chain), so an
+    # N-chain all-vs-all screen needs N encoder passes and N^2 cheap
+    # decodes, not N^2 whole forwards. These two kinds of entry are the
+    # served forward split at DeepInteract.encode / decode: composed, they
+    # give its probabilities bitwise on the same batch. The screening
+    # runners bypass the micro-batch scheduler (as in the JAX package) and
+    # share the exec lock with it, never the pool: an entry's output is
+    # copied to the host under the lock (replay_to_host).
+
+    def chain_bucket(self, n: int) -> int:
+        """Padded bucket for a LONE chain under this engine's bucket policy
+        (the split-phase analog of :meth:`bucket_for`, tile lift included)."""
+        return self.bucket_for(n, n)[0]
+
+    def encode_executable(self, bucket: int, sig: Tuple, slots: int, graph_batch):
+        """The entry of one chain-bucket encode over a ``[slots, bucket,
+        ...]`` stacked graph batch (``sig``: knn, geo, node and edge
+        feature widths); its replay gives ``[slots, bucket, C]`` float32
+        features. Captured once per key from ``graph_batch``."""
+        with self._exec_lock:
+            return self._entry(("enc", int(bucket), tuple(sig), int(slots)),
+                               (graph_batch,), encode_forward)
+
+    def decode_executable(self, b1: int, b2: int, slots: int, args: Tuple):
+        """The entry of one (bucket1, bucket2, slots) decode; ``args`` is
+        (feats1 [slots, b1, C] float32, feats2, mask1 [slots, b1] bool,
+        mask2) at the padded shapes. Its replay gives ``[slots, b1, b2]``
+        probabilities; over-bucket pairs decode tiled, as
+        ``DeepInteract.decode`` does."""
+        with self._exec_lock:
+            return self._entry(("dec", int(b1), int(b2), int(slots)),
+                               tuple(map(_as_tensor, args)), decode_forward)
+
+    def replay_to_host(self, entry, *inputs) -> np.ndarray:
+        """Replay a split-phase entry on ``inputs`` and copy its output to
+        the host under the exec lock: entries share one memory pool, so an
+        output is valid only until the next replay of any key."""
+        inputs = tuple(x if isinstance(x, ProteinGraph) else _as_tensor(x) for x in inputs)
+        with self._exec_lock:
+            return entry.replay(*inputs).cpu().numpy()
 
     # -- request path ------------------------------------------------------
 
@@ -468,7 +515,7 @@ class InferenceEngine:
         pad_slots = slots - len(items)
         t_assembled = time.perf_counter()
         with self._exec_lock:
-            entry = self._entry(tuple(bucket_key) + (slots,), batch)
+            entry = self._entry(tuple(bucket_key) + (slots,), (batch.graph1, batch.graph2))
             t_compiled = time.perf_counter()
             try:
                 faults.maybe_raise(

@@ -7,13 +7,19 @@ Its counterpart here is a :class:`GraphEntry`: the whole served forward,
 ``softmax(model(g1, g2))[..., 1]`` (both siamese encodes with K1 in every
 GT layer, the in-edge CSR builds, the decode and the softmax), captured
 once per key with ``torch.cuda.graph`` and replayed for every dispatch.
+The split phase of bulk screening (``deepinteract_tpu/serving/engine.py:
+555-638``) adds two more kinds of key in the same inventory: a chain
+bucket's encode (:func:`encode_forward`: K1 in every GT layer and the
+CSR build, float32 features out) and a bucket pair's decode
+(:func:`decode_forward`: stem, decoder and softmax over features).
 
 A replay issues every kernel of the forward with one host call, against
 eager PyTorch's one Python dispatch per op. What a capture bakes in:
 
-* **inputs**: static device buffers for the stacked ``ProteinGraph`` pair
-  at the key's padded shapes and slot count; :meth:`GraphEntry.replay`
-  ``copy_``-s each batch into them. The in-edge CSR is rebuilt from the
+* **inputs**: static device buffers for the key's inputs (the stacked
+  ``ProteinGraph`` pair, one chain batch, or features and masks) at its
+  padded shapes and slot count; :meth:`GraphEntry.replay` ``copy_``-s
+  each batch into them. The in-edge CSR is rebuilt from the
   static ``nbr_idx`` inside the graph on every replay (a stable
   ``torch.sort`` and ``searchsorted``, neither of which syncs).
 * **global state**: eval mode and the precision policy
@@ -63,30 +69,56 @@ def serve_forward(model, graph1: ProteinGraph, graph2: ProteinGraph) -> torch.Te
     return torch.softmax(model(graph1, graph2), dim=-1)[..., 1]
 
 
-def _copy_into(static: ProteinGraph, new: ProteinGraph) -> None:
-    for f in dataclasses.fields(ProteinGraph):
-        dst, src = getattr(static, f.name), getattr(new, f.name)
+def encode_forward(model, graph: ProteinGraph) -> torch.Tensor:
+    """The split phase's encode: [B, N, C] **float32** chain features,
+    whatever the compute policy (the JAX engine's ``_encode`` casts the
+    same way; ``decode`` casts them back, and bf16 -> f32 -> bf16 is
+    exact)."""
+    return model.encode(graph)[0].float()
+
+
+def decode_forward(model, feats1: torch.Tensor, feats2: torch.Tensor,
+                   mask1: torch.Tensor, mask2: torch.Tensor) -> torch.Tensor:
+    """The split phase's decode: [B, L1, L2] float32 positive-class
+    probabilities from encoded features and node masks. ``serve_forward``
+    is exactly ``decode_forward`` of two ``encode_forward``-s (f32)."""
+    return torch.softmax(model.decode(feats1, feats2, mask1, mask2), dim=-1)[..., 1]
+
+
+def _to_static(x, device):
+    if isinstance(x, ProteinGraph):
+        return ProteinGraph(**{f.name: getattr(x, f.name).to(device, copy=True)
+                               for f in dataclasses.fields(x)})
+    return x.to(device, copy=True)
+
+
+def _copy_into(static, new) -> None:
+    pairs = ([(f.name, getattr(static, f.name), getattr(new, f.name))
+              for f in dataclasses.fields(ProteinGraph)] if isinstance(static, ProteinGraph)
+             else [("input", static, new)])
+    for name, dst, src in pairs:
         if dst.shape != src.shape or dst.dtype != src.dtype:
-            raise ValueError(f"{f.name}: batch has {src.dtype} {tuple(src.shape)}, the "
+            raise ValueError(f"{name}: batch has {src.dtype} {tuple(src.shape)}, the "
                              f"graph was captured for {dst.dtype} {tuple(dst.shape)}")
         dst.copy_(src)
 
 
 class EagerEntry:
-    """A key on the CPU: no capture (``seconds`` is 0); each replay runs the
-    forward eagerly."""
+    """A key on the CPU: no capture (``seconds`` is 0); each replay runs
+    ``fn(model, *inputs)`` eagerly."""
 
-    def __init__(self, model):
+    def __init__(self, model, fn=serve_forward):
         self.model = model
+        self.fn = fn
         self.seconds = 0.0
         self.k1_launches = 0
         self.k2_launches = 0
         self.csr_builds = 0
         self.replays = 0
 
-    def replay(self, graph1: ProteinGraph, graph2: ProteinGraph) -> torch.Tensor:
+    def replay(self, *inputs) -> torch.Tensor:
         with torch.inference_mode():
-            out = serve_forward(self.model, graph1, graph2)
+            out = self.fn(self.model, *inputs)
         self.replays += 1
         return out
 
@@ -94,13 +126,16 @@ class EagerEntry:
 class GraphEntry:
     """One key on the card: static inputs, a captured graph, its output.
 
-    ``graph1`` / ``graph2`` are a stacked batch at the key's shapes (on any
-    device); they size the static buffers and feed the warm-up runs.
-    ``seconds`` is the capture wall (warm-up runs and capture);
-    ``k1_launches``, ``k2_launches`` and ``csr_builds`` are the counters'
-    moves during the capture alone."""
+    ``inputs`` are the arguments of ``fn(model, *inputs)`` at the key's
+    shapes (stacked ``ProteinGraph`` batches or tensors, on any device;
+    :meth:`replay` takes the same kinds):
+    they size the static buffers and feed the warm-up runs. ``fn`` is
+    :func:`serve_forward` (a request key), :func:`encode_forward` or
+    :func:`decode_forward` (the split phase). ``seconds`` is the capture
+    wall (warm-up runs and capture); ``k1_launches``, ``k2_launches`` and
+    ``csr_builds`` are the counters' moves during the capture alone."""
 
-    def __init__(self, model, graph1: ProteinGraph, graph2: ProteinGraph, pool):
+    def __init__(self, model, inputs: tuple, pool, fn=serve_forward):
         device = next(model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"GraphEntry needs a model on a CUDA device, got {device}")
@@ -108,14 +143,13 @@ class GraphEntry:
         model.eval()
         set_backend_precision(model.cfg.gnn.compute_dtype)
         self.model = model
-        self.static = tuple(ProteinGraph(**{f.name: getattr(g, f.name).to(device, copy=True)
-                                            for f in dataclasses.fields(g)})
-                            for g in (graph1, graph2))
+        self.fn = fn
+        self.static = tuple(_to_static(x, device) for x in inputs)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side), torch.inference_mode():
             for _ in range(WARMUP_RUNS):
-                serve_forward(model, *self.static)
+                fn(model, *self.static)
         torch.cuda.current_stream(device).wait_stream(side)
         k1 = cuda_attention.edge_attention_forward.launches
         k2 = cuda_attention.edge_attention_backward.launches
@@ -123,28 +157,28 @@ class GraphEntry:
         self.graph = torch.cuda.CUDAGraph()
         with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool,
                                                       capture_error_mode="thread_local"):
-            self.output = serve_forward(model, *self.static)
+            self.output = fn(model, *self.static)
         self.k1_launches = cuda_attention.edge_attention_forward.launches - k1
         self.k2_launches = cuda_attention.edge_attention_backward.launches - k2
         self.csr_builds = cuda_attention.in_edge_csr.builds - builds
         self.seconds = time.perf_counter() - t0
         self.replays = 0
 
-    def replay(self, graph1: ProteinGraph, graph2: ProteinGraph) -> torch.Tensor:
-        """Copy the batch into the static inputs and replay. Returns the
+    def replay(self, *inputs) -> torch.Tensor:
+        """Copy the inputs into the static buffers and replay. Returns the
         static output: valid until the next replay of any entry that
         shares the pool."""
         with torch.inference_mode():
-            _copy_into(self.static[0], graph1)
-            _copy_into(self.static[1], graph2)
+            for static, new in zip(self.static, inputs, strict=True):
+                _copy_into(static, new)
         self.graph.replay()
         self.replays += 1
         return self.output
 
 
-def make_entry(model, graph1: ProteinGraph, graph2: ProteinGraph, pool):
-    """A :class:`GraphEntry` for a model on the card, an
+def make_entry(model, inputs: tuple, pool, fn=serve_forward):
+    """A :class:`GraphEntry` of ``fn`` for a model on the card, an
     :class:`EagerEntry` for one on the CPU."""
     if next(model.parameters()).device.type == "cuda":
-        return GraphEntry(model, graph1, graph2, pool)
-    return EagerEntry(model)
+        return GraphEntry(model, inputs, pool, fn)
+    return EagerEntry(model, fn)

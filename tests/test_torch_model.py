@@ -156,9 +156,9 @@ def test_bfloat16_policy_runs_on_cpu(carried):
     assert reps["graph1_node_feats"].dtype == torch.bfloat16
 
 
-# The training lifecycle's, the model configurations' and serving's modules,
-# named so that the check below fails if one of them stops being importable
-# on its own.
+# The training lifecycle's, the model configurations', serving's and the
+# split-phase subsystems' modules, named so that the check below fails if one
+# of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
@@ -166,7 +166,11 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "obs.metrics", "obs.spans", "obs.heartbeat", "robustness.retry",
     "training.import_torch", "training.supervisor", "cli.import_checkpoint",
     "serving.cache", "serving.admission", "serving.scheduler", "serving.graphs",
-    "serving.engine", "serving.server", "obs.reqtrace", "cli.serve"))
+    "serving.engine", "serving.server", "obs.reqtrace", "cli.serve",
+    "screening.scoring", "screening.embcache", "screening.manifest", "screening.library",
+    "screening.runner", "data.packed", "calibration.calibrator", "index.format",
+    "index.prefilter", "index.builder", "index.funnel", "assembly.runner",
+    "cli.screen", "cli.index", "cli.query", "cli.assemble", "cli.calibrate"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
