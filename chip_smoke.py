@@ -45,8 +45,8 @@ Phases, in order; any failure exits non-zero:
      (on a prebuilt CSR, as the main path runs it) and the CSR build at
      N = 64, 128, 192, 256 and 512 beside each kernel's bound, the plain
      versions at N = 256; predict per complex split into encode and
-     decode (median of 10); the train step per complex (host clock around
-     synchronized steps, median of 3) with its peak memory and its split into
+     decode (median of 5); the train step per complex (host clock around
+     synchronized steps, median of 2) with its peak memory and its split into
      forward, backward and optimizer; one step of the largest complex
      under torch.profiler for its kernel count and device busy share;
   7. the model configurations beyond the flagship decoder, at the
@@ -118,10 +118,32 @@ Phases, in order; any failure exits non-zero:
      and decode ms per pair per key (replay device time), the screen's
      pairs a second and its device time, and 16 of its pairs through
      ``engine.predict``.
+ 11. the split-phase routes and the serving fleet at the flagship width:
+     (a) ``ServingServer`` in process (seeded weights): ``POST /screen``
+     of 8 chains with its records against ``ScreenRunner.screen`` on the
+     same engine and cache (bitwise, else 1e-6) and (2, 0, 1) per encode
+     capture, ``POST /assembly`` of 4 chains with one twice (3 encodes;
+     its K1 launches counted around it), an indexed ``/screen`` against
+     phase 10's index against ``cli.query`` on it, an oversize screen
+     (400) and a 1 ms deadline (504); (b) ``cli.serve --workers 2
+     --warmup_buckets 128x128x1,256x192x1 --weights W`` (random weights
+     from the seed): each engine worker warm with (4, 0, 2) per key read
+     from its ``/stats``, ``/predict`` at 128x128 and 256x192 and
+     ``/screen`` through the router against in-process replays on the
+     same weights (bitwise, else 1e-6); (c) a worker SIGKILLed under 16
+     concurrent ``/predict`` clients: no failed request, the worker
+     restarted and warm, both workers answering; (d) ``POST
+     /admin/rollover`` to a second weights file with its signature under
+     load: no 5xx, old workers exit 0, maps equal to the new weights;
+     then a rollover to a signature no replacement reaches aborts and the
+     fleet keeps serving; the fleet's ``fleet/v1`` line through
+     ``tools/check_cli_contract.py``; (e) start-to-warm seconds, routed
+     and direct latency per bucket, latency before and during the swap,
+     and the card's memory in use with 2 and 4 workers.
 The line before the last is the card's name and power limit; before it, a
-``{"kernels": [...]}`` JSON line, before that phase 10's
-``{"screening": {...}}`` summary, and before that phase 9's
-``{"serving": {...}}`` one. The last line is the device record
+``{"kernels": [...]}`` JSON line, before that phase 11's ``{"fleet":
+{...}}`` summary, before that phase 10's ``{"screening": {...}}`` one,
+and before that phase 9's ``{"serving": {...}}`` one. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -131,10 +153,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import http.client
 import io
 import json
 import math
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1251,12 +1276,12 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
 
 
 # Timing runs (medians) per path: maps of one tile, tiled maps, the DeepLab
-# train step, the tiled train step. Cut from 20 / 5 / 5 / 3 in PR 6 to keep
-# the script near 400 s after phase 8 joined it, and to 3 / 2 / 2 / 1 when
-# phase 9 joined it.
-CONFIG_RUNS = {"predict": 3, "predict_tiled": 2, "train": 2, "train_tiled": 1}
-PHASE6_PREDICT_RUNS = 10  # per complex (20 before phase 9 joined the script)
-PHASE6_TRAIN_RUNS = 3  # per batch (5 before phase 9)
+# train step, the tiled train step. Cut as phases joined the script, to keep
+# it inside half its time limit: from 20 / 5 / 5 / 3 to 3 / 2 / 2 / 1 with
+# the serving phase, and to 2 / 1 / 1 / 1 with the fleet phase.
+CONFIG_RUNS = {"predict": 2, "predict_tiled": 1, "train": 1, "train_tiled": 1}
+PHASE6_PREDICT_RUNS = 5  # per complex (20, then 10, before the fleet phase)
+PHASE6_TRAIN_RUNS = 2  # per batch (5, then 3)
 
 
 def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS) -> dict:
@@ -2170,8 +2195,9 @@ def run_split_phase_clis(seed, work, smi) -> dict:
     return out
 
 
-def run_screening(cfg, seed, device, smi) -> dict:
-    """Phase 10: the split phase at the flagship width on the card."""
+def run_screening(cfg, seed, device, smi, work) -> dict:
+    """Phase 10: the split phase at the flagship width on the card. Its
+    index is left in ``work/index`` for phase 11's indexed screen."""
     from deepinteract_tpu_torch.assembly import AssemblyConfig, AssemblyRunner
     from deepinteract_tpu_torch.index import (ChainIndex, IndexedQueryRunner, QueryConfig,
                                               build_index, verify_index)
@@ -2259,76 +2285,75 @@ def run_screening(cfg, seed, device, smi) -> dict:
     split_checks = check_split_pairs(engine, runner, plain_model, library, cold.records, device)
     del plain_model
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_screen_") as work:
-        # A manifest-backed screen preempted by its guard, then resumed.
-        path = os.path.join(work, "manifest.json")
-        m1, _ = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
-        guard = PreemptionGuard(log=lambda msg: None)
-        r1 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
-            library, pairs, manifest=m1, guard=guard,
-            after_batch=lambda n: guard.request("smoke") if n == SCREEN_PREEMPT_AT else None)
-        m2, resumed = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
-        r2 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
-            library, pairs, manifest=m2, guard=PreemptionGuard(log=lambda msg: None))
-        check(r1.preempted and resumed and r1.decode_batches == SCREEN_PREEMPT_AT
-              and 0 < r1.pairs_scored < len(pairs)
-              and r1.pairs_scored + r2.pairs_scored == len(pairs)
-              and r2.pairs_resumed == r1.pairs_scored and not r2.preempted,
-              f"preempted {r1.summary()} resumed {r2.summary()}")
-        ref = {r["pair_id"]: r for r in cold.records}
-        resume_diff, resume_bitwise = 0.0, 0
-        check({r["pair_id"] for r in r2.records} == set(ref), "the resumed records' pairs")
-        for rec in r2.records:
+    # A manifest-backed screen preempted by its guard, then resumed.
+    path = os.path.join(work, "manifest.json")
+    m1, _ = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
+    guard = PreemptionGuard(log=lambda msg: None)
+    r1 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
+        library, pairs, manifest=m1, guard=guard,
+        after_batch=lambda n: guard.request("smoke") if n == SCREEN_PREEMPT_AT else None)
+    m2, resumed = ScreenManifest.load_or_create(path, library.signature(), len(pairs))
+    r2 = ScreenRunner(engine, cache=cache, cfg=screen_cfg).screen(
+        library, pairs, manifest=m2, guard=PreemptionGuard(log=lambda msg: None))
+    check(r1.preempted and resumed and r1.decode_batches == SCREEN_PREEMPT_AT
+          and 0 < r1.pairs_scored < len(pairs)
+          and r1.pairs_scored + r2.pairs_scored == len(pairs)
+          and r2.pairs_resumed == r1.pairs_scored and not r2.preempted,
+          f"preempted {r1.summary()} resumed {r2.summary()}")
+    ref = {r["pair_id"]: r for r in cold.records}
+    resume_diff, resume_bitwise = 0.0, 0
+    check({r["pair_id"] for r in r2.records} == set(ref), "the resumed records' pairs")
+    for rec in r2.records:
+        want = ref[rec["pair_id"]]
+        check((rec["chain1"], rec["chain2"], rec["bucket"]) == (
+            want["chain1"], want["chain2"], want["bucket"]), f"orientation {rec['pair_id']}")
+        resume_diff = max(resume_diff, abs(rec["score"] - want["score"]))
+        resume_bitwise += rec["score"] == want["score"]
+    check(resume_diff <= SLOT_BAR, f"resumed scores vs uninterrupted: {resume_diff:.3g}")
+    log(f"  preempted after {r1.pairs_scored} pairs, resumed: {r2.pairs_scored} more, "
+        f"{r2.pairs_resumed} from the manifest; scores vs the uninterrupted screen "
+        f"{resume_bitwise}/{len(pairs)} bitwise, max |diff| {resume_diff:.3g} (bar "
+        f"{SLOT_BAR})")
+
+    # An index over the library (the screen's cached embeddings), and
+    # queries of two chains whose scores are the screen's rows.
+    index_dir = os.path.join(work, "index")
+    built = build_index(engine, library, index_dir, partition_size=8,
+                        encode_batch=SCREEN_BATCH, cache=cache)
+    report = verify_index(index_dir)
+    check(report["ok"] and report["chains"] == n_chains and not built.preempted,
+          f"index verify {report}")
+    index = ChainIndex.open(index_dir)
+    qrunner = IndexedQueryRunner(engine, index, cfg=QueryConfig(
+        top_m=8, top_k=10, decode_batch=SCREEN_BATCH))
+    query_diff = 0.0
+    t0 = time.perf_counter()
+    for q in library.ids()[:2]:
+        res = qrunner.query_from_index(q)
+        check(res.survivors == res.pairs_decoded == 8 and res.candidates == n_chains - 1,
+              f"query {q}: {res.summary()}")
+        for rec in res.records:
             want = ref[rec["pair_id"]]
-            check((rec["chain1"], rec["chain2"], rec["bucket"]) == (
-                want["chain1"], want["chain2"], want["bucket"]), f"orientation {rec['pair_id']}")
-            resume_diff = max(resume_diff, abs(rec["score"] - want["score"]))
-            resume_bitwise += rec["score"] == want["score"]
-        check(resume_diff <= SLOT_BAR, f"resumed scores vs uninterrupted: {resume_diff:.3g}")
-        log(f"  preempted after {r1.pairs_scored} pairs, resumed: {r2.pairs_scored} more, "
-            f"{r2.pairs_resumed} from the manifest; scores vs the uninterrupted screen "
-            f"{resume_bitwise}/{len(pairs)} bitwise, max |diff| {resume_diff:.3g} (bar "
-            f"{SLOT_BAR})")
+            check((rec["chain1"], rec["chain2"]) == (want["chain1"], want["chain2"]),
+                  f"query orientation {rec['pair_id']}")
+            query_diff = max(query_diff, abs(rec["score"] - want["score"]))
+    query_s = (time.perf_counter() - t0) / 2
+    check(query_diff <= SLOT_BAR, f"query scores vs the screen's rows: {query_diff:.3g}")
+    log(f"  index: {built.partitions_total} partitions, verify ok; 2 queries (top_m 8) of "
+        f"{index.num_chains - 1} candidates, scores vs the screen's rows max |diff| "
+        f"{query_diff:.3g} (bar {SLOT_BAR}), {query_s * 1e3:.3f} ms each")
 
-        # An index over the library (the screen's cached embeddings), and
-        # queries of two chains whose scores are the screen's rows.
-        index_dir = os.path.join(work, "index")
-        built = build_index(engine, library, index_dir, partition_size=8,
-                            encode_batch=SCREEN_BATCH, cache=cache)
-        report = verify_index(index_dir)
-        check(report["ok"] and report["chains"] == n_chains and not built.preempted,
-              f"index verify {report}")
-        index = ChainIndex.open(index_dir)
-        qrunner = IndexedQueryRunner(engine, index, cfg=QueryConfig(
-            top_m=8, top_k=10, decode_batch=SCREEN_BATCH))
-        query_diff = 0.0
-        t0 = time.perf_counter()
-        for q in library.ids()[:2]:
-            res = qrunner.query_from_index(q)
-            check(res.survivors == res.pairs_decoded == 8 and res.candidates == n_chains - 1,
-                  f"query {q}: {res.summary()}")
-            for rec in res.records:
-                want = ref[rec["pair_id"]]
-                check((rec["chain1"], rec["chain2"]) == (want["chain1"], want["chain2"]),
-                      f"query orientation {rec['pair_id']}")
-                query_diff = max(query_diff, abs(rec["score"] - want["score"]))
-        query_s = (time.perf_counter() - t0) / 2
-        check(query_diff <= SLOT_BAR, f"query scores vs the screen's rows: {query_diff:.3g}")
-        log(f"  index: {built.partitions_total} partitions, verify ok; 2 queries (top_m 8) of "
-            f"{index.num_chains - 1} candidates, scores vs the screen's rows max |diff| "
-            f"{query_diff:.3g} (bar {SLOT_BAR}), {query_s * 1e3:.3f} ms each")
-
-        # A 4-chain assembly with one chain twice (under a second id).
-        a, b, c = library.chains[:3]
-        asm_lib = ChainLibrary([a, b, c, ChainEntry(f"{a.chain_id}_twin", a.raw, a.n)])
-        assembly = AssemblyRunner(engine, cache=EmbeddingCache(), cfg=AssemblyConfig(
-            decode_batch=SCREEN_BATCH, encode_batch=SCREEN_BATCH)).assemble(asm_lib)
-        check(assembly.unique_encodes == 3 and assembly.pairs_scored == 6
-              and assembly.control_score is not None, f"assembly {assembly.summary()}")
-        log(f"  assembly of 4 chains (one twice): {assembly.unique_encodes} encodes, "
-            f"{assembly.pairs_scored} pairs, interactability {assembly.interactability:.6f}, "
-            f"control {assembly.control_score:.6f}")
-        clis = run_split_phase_clis(seed, work, smi)
+    # A 4-chain assembly with one chain twice (under a second id).
+    a, b, c = library.chains[:3]
+    asm_lib = ChainLibrary([a, b, c, ChainEntry(f"{a.chain_id}_twin", a.raw, a.n)])
+    assembly = AssemblyRunner(engine, cache=EmbeddingCache(), cfg=AssemblyConfig(
+        decode_batch=SCREEN_BATCH, encode_batch=SCREEN_BATCH)).assemble(asm_lib)
+    check(assembly.unique_encodes == 3 and assembly.pairs_scored == 6
+          and assembly.control_score is not None, f"assembly {assembly.summary()}")
+    log(f"  assembly of 4 chains (one twice): {assembly.unique_encodes} encodes, "
+        f"{assembly.pairs_scored} pairs, interactability {assembly.interactability:.6f}, "
+        f"control {assembly.control_score:.6f}")
+    clis = run_split_phase_clis(seed, work, smi)
 
     # Times: each graph's replay (device, CUDA events) per chain and per
     # pair; the screen's pairs per second; the same pairs through predict.
@@ -2380,6 +2405,561 @@ def run_screening(cfg, seed, device, smi) -> dict:
             "split_checks": split_checks, "resume_max_diff": resume_diff,
             "resume_bitwise": resume_bitwise, "query_max_diff": query_diff,
             "assembly": assembly.summary(), "clis": clis, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the split-phase routes and the serving fleet
+# ---------------------------------------------------------------------------
+
+FLEET_WARMUP = "128x128x1,256x192x1"  # the engine workers' warm-up keys
+FLEET_COUNTS = (4, 0, 2)  # (K1, K2, CSR builds) per flagship capture in a worker
+FLEET_LOAD_THREADS = 16  # concurrent /predict clients under the SIGKILL
+ROLLOVER_LOAD_THREADS = 8  # and under the rollover
+FLEET_TIME_RUNS = 10  # routed and direct requests per bucket
+# --fleet_warm_timeout_s: the aborted rollover waits it out. A rollover of
+# two flagship workers under 16 clients took 24.3 s (PR 9's first run).
+FLEET_WARM_TIMEOUT_S = 32.0
+FLEET_START_TIMEOUT_S = 240.0
+ROUTE_LIBRARY = ((60, 90), (110, 70), (40, 120), (100, 50))  # 8 chains, buckets 64 and 128
+ROUTE_ASSEMBLY = ((180, 220), (230, 170))  # new chains (bucket 256): the assembly captures
+ROUTE_FRESH = 6  # fresh complexes (12 chains) for the 1 ms deadline
+ABSENT_SIGNATURE = "jax-variables:0000000000000000"  # no replacement reaches it
+
+
+def random_weights_npz(cfg, seed: int, path: str) -> None:
+    """A ``.npz`` of JAX variables for ``cfg`` made from ``seed``
+    (fan-in-scaled normal kernels, positive running variances): the file an
+    engine worker loads with ``--weights``."""
+    from deepinteract_tpu_torch.models.model import DeepInteract
+    from deepinteract_tpu_torch.weights import jax_variable_shapes, save_npz
+
+    rng = np.random.default_rng(seed)
+
+    def fill(node, path):
+        out = {}
+        for key, value in node.items():
+            if isinstance(value, dict):
+                out[key] = fill(value, path + (key,))
+                continue
+            arr = rng.standard_normal(value).astype(np.float32)
+            if len(value) >= 2:
+                fan = value[1:-1] if "chunks" in path else value[:-1]
+                arr /= np.sqrt(max(int(np.prod(fan)), 1))
+            if key == "var":
+                arr = np.abs(arr) + 0.5
+            out[key] = arr
+        return out
+
+    save_npz(path, fill(jax_variable_shapes(DeepInteract(cfg)), ()))
+
+
+def _write_complexes(work, prefix, sizes, seed) -> list:
+    paths = []
+    for i, (n1, n2) in enumerate(sizes):
+        raw = random_raw_complex(n1, n2, np.random.default_rng(seed + i))
+        paths.append(os.path.join(work, f"{prefix}{i}.npz"))
+        save_complex_npz(paths[-1], raw["graph1"], raw["graph2"], raw["examples"],
+                         f"{prefix}{i}")
+    return paths
+
+
+def _post_json(host, port, path, payload, headers=None, timeout=300):
+    return _post(host, port, path, json.dumps(payload).encode(),
+                 {"Content-Type": "application/json", **(headers or {})}, timeout=timeout)
+
+
+def _same(got, want) -> tuple:
+    """(bitwise, max |diff|) of two arrays; the check is bitwise, else 1e-6."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return False, math.inf
+    diff = float(np.abs(got - want).max()) if got.size else 0.0
+    return bool(np.array_equal(got, want)), diff
+
+
+def _check_records(label, got, want) -> dict:
+    """Ranked records: the same pairs in the same order, scores bitwise
+    (else within 1e-6)."""
+    check([r["pair_id"] for r in got] == [r["pair_id"] for r in want],
+          f"{label}: ranked pairs differ")
+    bitwise, diff = _same([r["score"] for r in got], [r["score"] for r in want])
+    check(bitwise or diff <= 1e-6, f"{label}: scores differ by {diff:.3g} (bar 1e-6)")
+    return {"pairs": len(got), "bitwise": bitwise, "max_abs_diff": diff}
+
+
+def _encode_captures(engine) -> dict:
+    return {label: (i["k1_launches"], i["k2_launches"], i["csr_builds"])
+            for label, i in engine.stats()["compile_inventory"].items()
+            if label.startswith("enc:")}
+
+
+def run_routes(cfg, seed, device, work) -> dict:
+    """Phase 11a: ``POST /screen``, ``POST /assembly`` and the indexed
+    ``/screen`` of ``ServingServer`` in process, at the flagship width."""
+    from deepinteract_tpu_torch.cli import query as query_cli
+    from deepinteract_tpu_torch.index import ChainIndex
+    from deepinteract_tpu_torch.screening import (ChainLibrary, ScreenConfig, ScreenRunner,
+                                                  enumerate_pairs)
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine, ServingServer
+    from deepinteract_tpu_torch.serving.graphs import WARMUP_RUNS
+
+    log("  11a: the split-phase routes in process (ServingServer, seeded flagship engine)")
+    engine = InferenceEngine(cfg, cfg=EngineConfig(max_batch=SCREEN_BATCH, result_cache_size=0),
+                             seed=seed, device=device)
+    files = _write_complexes(work, "route", ROUTE_LIBRARY, seed + 111)
+    library = ChainLibrary.from_complex_files(files)
+    pairs = enumerate_pairs(library)
+    check(len(library) == 8 and len(pairs) == 28, f"route library {len(library)} chains")
+    index_dir = os.path.join(work, "index")  # phase 10's index, built by the same seed
+    server = ServingServer(engine, port=0, screen_max_pairs=len(pairs), index_path=index_dir)
+    server.serve_background()
+    host, port = server.address
+    out = {}
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        status, screen = _post_json(host, port, "/screen", {"npz_paths": files, "top_k": 10})
+        screen_s = time.perf_counter() - t0
+        counts = launches()
+        check(status == 200 and screen["pairs"] == 28 and screen["encodes_executed"] == 8,
+              f"/screen {status}: {str(screen)[:300]}")
+        per_capture = _encode_captures(engine)
+        check(per_capture and all(c == ENCODE_COUNTS for c in per_capture.values()),
+              f"/screen encode captures counted {per_capture}, expected {ENCODE_COUNTS}")
+        runs = (1 + WARMUP_RUNS) * len(per_capture)
+        check(counts == (ENCODE_COUNTS[0] * runs, 0, ENCODE_COUNTS[2] * runs),
+              f"/screen launches {counts} for {len(per_capture)} encode captures")
+        runner = ScreenRunner(engine, cache=server._screen_cache, cfg=ScreenConfig(
+            top_k=10, decode_batch=SCREEN_BATCH, encode_batch=SCREEN_BATCH))
+        direct = runner.screen(library, pairs)
+        out["screen_vs_runner"] = _check_records("/screen vs ScreenRunner.screen",
+                                                 screen["ranked"], direct.records)
+        out["screen"] = {"launches": counts, "encode_captures": len(per_capture),
+                         "per_encode_capture": ENCODE_COUNTS, "seconds": screen_s}
+        log(f"  /screen of 8 chains: 28 pairs, 8 encodes, {len(per_capture)} encode captures "
+            f"each (K1, K2, CSR builds) {ENCODE_COUNTS}, launches {counts}; records vs "
+            f"ScreenRunner.screen on the same engine and cache: "
+            f"{'bitwise equal' if out['screen_vs_runner']['bitwise'] else out['screen_vs_runner']['max_abs_diff']}"
+            f"; {screen_s:.3f} s")
+
+        # A 4-chain assembly, one chain twice (under a second id), in a new bucket.
+        raw_a = random_raw_complex(*ROUTE_ASSEMBLY[0], np.random.default_rng(seed + 121))
+        raw_b = random_raw_complex(*ROUTE_ASSEMBLY[1], np.random.default_rng(seed + 122))
+        asm_files = [os.path.join(work, "asm0.npz"), os.path.join(work, "asm1.npz")]
+        none = np.zeros((0, 3), np.int32)
+        save_complex_npz(asm_files[0], raw_a["graph1"], raw_a["graph2"], none, "asm0")
+        save_complex_npz(asm_files[1], raw_b["graph1"], raw_a["graph1"], none, "asm1")
+        before = set(_encode_captures(engine))
+        reset_launches()
+        status, asm = _post_json(host, port, "/assembly", {"npz_paths": asm_files, "top_k": 10})
+        asm_counts = launches()
+        new = {k: v for k, v in _encode_captures(engine).items() if k not in before}
+        check(status == 200 and asm["unique_encodes"] == 3 and asm["pairs_scored"] == 6
+              and asm["control_score"] is not None, f"/assembly {status}: {str(asm)[:300]}")
+        runs = (1 + WARMUP_RUNS) * len(new)
+        check(new and asm_counts == (ENCODE_COUNTS[0] * runs, 0, ENCODE_COUNTS[2] * runs),
+              f"/assembly launches {asm_counts} for new encode captures {new}")
+        out["assembly"] = {"unique_encodes": asm["unique_encodes"], "launches": asm_counts,
+                           "encode_captures": len(new)}
+        log(f"  /assembly of 4 chains (one twice): {asm['unique_encodes']} encodes, 6 pairs, "
+            f"{len(new)} new encode captures, launches {asm_counts}")
+
+        # The indexed screen against phase 10's index, and cli.query on it.
+        query = ChainIndex.open(index_dir).chain_ids()[0]
+        status, indexed = _post_json(host, port, "/screen",
+                                     {"indexed": True, "query": query, "top_m": 8, "top_k": 10})
+        check(status == 200 and indexed["indexed"] and not indexed["partial"]
+              and indexed["pairs_decoded"] == 8, f"indexed /screen {status}: {str(indexed)[:300]}")
+        rec = _check_contract("query", _run_cli(query_cli.main, [
+            "--index_dir", index_dir, "--query", query, "--top_m", "8", "--top_k", "10",
+            "--screen_batch", str(SCREEN_BATCH), "--seed", str(seed),
+            "--out", os.path.join(work, "route_query")]))
+        with open(rec["ranked_out"]) as fh:
+            cli_rows = [json.loads(line) for line in fh if line.strip()]
+        out["indexed_vs_cli_query"] = _check_records("indexed /screen vs cli.query",
+                                                     indexed["ranked"], cli_rows)
+        log(f"  indexed /screen of {query} (top_m 8) against phase 10's index: the same 8 "
+            "partners as cli.query, scores "
+            f"{'bitwise equal' if out['indexed_vs_cli_query']['bitwise'] else out['indexed_vs_cli_query']['max_abs_diff']}")
+
+        # Refusals: over screen_max_pairs (400), a 1 ms deadline (504).
+        extra = _write_complexes(work, "extra", ((70, 80),), seed + 131)
+        status, body = _post_json(host, port, "/screen", {"npz_paths": files + extra})
+        check(status == 400 and "synchronous limit" in body["error"],
+              f"oversize /screen: {status} {body}")
+        fresh = _write_complexes(work, "fresh", [(90, 110)] * ROUTE_FRESH, seed + 141)
+        first = ChainLibrary.from_complex_files(fresh[:1]).ids()[0]
+        status, body = _post_json(host, port, "/screen", {"npz_paths": fresh, "query": [first]},
+                                  headers={"X-Request-Deadline-Ms": "1"})
+        check(status == 504 and "deadline" in body["error"], f"1 ms deadline: {status} {body}")
+        status, stats = _get(host, port, "/stats")
+        check(stats["screening"]["requests"] >= 2 and stats["screening"]["requests_rejected"] >= 1,
+              f"/stats screening block {stats['screening']}")
+        out["refusals"] = {"oversize": 400, "deadline_1ms": 504}
+        log("  oversize /screen (45 pairs, limit 28): 400; 1 ms deadline: 504; /stats screening "
+            f"block {stats['screening']}")
+    finally:
+        server.httpd.shutdown()
+        server.httpd.server_close()
+        engine.close()
+    out["route_screen_per_encode_capture"] = ENCODE_COUNTS[0]
+    out["route_assembly"] = out["assembly"]["launches"][0]
+    return out
+
+
+def card_used_gib() -> float:
+    """Memory in use on the card by every process (driver's count)."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2 ** 30
+
+
+class _Load:
+    """``threads`` clients POSTing /predict through the router in a loop,
+    each request's (start, seconds, status, worker) kept."""
+
+    def __init__(self, host, port, bodies, threads):
+        self.results, self._lock, self._stop = [], threading.Lock(), threading.Event()
+        self._threads = [threading.Thread(target=self._client, args=(host, port, bodies, i),
+                                          daemon=True) for i in range(threads)]
+        for t in self._threads:
+            t.start()
+
+    def _client(self, host, port, bodies, i):
+        import http.client
+
+        n = i
+        while not self._stop.is_set():
+            body = bodies[n % len(bodies)]
+            n += 1
+            t0 = time.perf_counter()
+            try:
+                conn = http.client.HTTPConnection(host, port, timeout=120)
+                conn.request("POST", "/predict", body=body,
+                             headers={"Content-Type": "application/octet-stream"})
+                resp = conn.getresponse()
+                resp.read()
+                status, worker = resp.status, resp.getheader("X-DI-Worker")
+                conn.close()
+            except Exception as exc:  # noqa: BLE001 - tallied as a failure
+                status, worker = -1, repr(exc)
+            with self._lock:
+                self.results.append((t0, time.perf_counter() - t0, status, worker))
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self.results)
+
+    def wait_for(self, n, timeout=60.0) -> None:
+        t_end = time.monotonic() + timeout
+        while self.count() < n and time.monotonic() < t_end:
+            time.sleep(0.01)
+        check(self.count() >= n, f"load reached {self.count()} of {n} requests")
+
+    def stop(self) -> list:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=150)
+        check(not any(t.is_alive() for t in self._threads), "a load client hung")
+        return list(self.results)
+
+
+def _percentiles(seconds) -> dict:
+    ms = sorted(1e3 * s for s in seconds)
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def _fleet_stats(host, port) -> dict:
+    status, stats = _get(host, port, "/stats", timeout=60)
+    check(status == 200, f"router /stats {status}")
+    return stats
+
+
+def _wait_fleet(host, port, want_ids, keys, timeout, since) -> dict:
+    """Poll the router until every worker in ``want_ids`` is healthy with
+    ``keys`` warm; returns worker -> seconds from ``since`` to warm."""
+    warm_at = {}
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        workers = _fleet_stats(host, port)["fleet"]["workers"]
+        for wid in want_ids:
+            info = workers.get(wid, {})
+            labels = (info.get("health") or {}).get("warm_buckets") or []
+            if (wid not in warm_at and info.get("state") == "healthy"
+                    and all(any(str(l).startswith(k) for l in labels) for k in keys)):
+                warm_at[wid] = time.perf_counter() - since
+        if len(warm_at) == len(want_ids):
+            return warm_at
+        time.sleep(0.1)
+    check(False, f"workers {sorted(set(want_ids) - set(warm_at))} not warm after {timeout} s")
+
+
+def _tail(path, n=40) -> str:
+    try:
+        with open(path, errors="replace") as fh:
+            return "".join(fh.readlines()[-n:])
+    except OSError:
+        return f"({path} not readable)"
+
+
+def run_fleet(cfg, seed, device, smi, work, route_files) -> dict:
+    """Phase 11b-e: ``cli.serve --workers 2`` with real engine workers on
+    the card behind the port's router."""
+    from deepinteract_tpu_torch.cli.serve import parse_warmup_spec, warm_bucket_prefixes
+    from deepinteract_tpu_torch.screening import (ChainLibrary, EmbeddingCache, ScreenConfig,
+                                                  ScreenRunner, enumerate_pairs)
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    log("  11b: a fleet of 2 engine workers (cli.serve --workers 2) behind the router")
+    weights = [os.path.join(work, f"fleet_weights{i}.npz") for i in (1, 2)]
+    for i, path in enumerate(weights):
+        random_weights_npz(cfg, seed + 201 + i, path)
+    warm = parse_warmup_spec(FLEET_WARMUP)
+    keys = warm_bucket_prefixes(FLEET_WARMUP)
+    raws = [random_raw_complex(n1, n2, np.random.default_rng(seed + 211 + i))
+            for i, (n1, n2) in enumerate(COMPLEXES[:2])]  # buckets 128x128, 256x192
+    bodies = [_npz_bytes(raw) for raw in raws]
+    refs, want, sigs = [], [], []
+    for path in weights:
+        ref = InferenceEngine(cfg, cfg=EngineConfig(warmup_buckets=warm, result_cache_size=0),
+                              device=device, weights=path)
+        refs.append(ref)
+        want.append([ref.predict(raw)["probs"] for raw in raws])
+        sigs.append(ref.weights_signature())
+        check(all(np.isfinite(p).all() for p in want[-1]), f"{path}: probabilities not finite")
+    check(sigs[0] != sigs[1] and sigs[0].startswith("jax-variables:"), f"signatures {sigs}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    used_before = card_used_gib()
+
+    fleet_dir = os.path.join(work, "fleet")
+    err_path = os.path.join(work, "fleet_router.log")
+    err = open(err_path, "w")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepinteract_tpu_torch.cli.serve", "--workers", "2",
+         "--warmup_buckets", FLEET_WARMUP, "--weights", weights[0], "--port", "0",
+         "--fleet_dir", fleet_dir, "--probe_interval_s", "0.25", "--result_cache_size", "0",
+         "--fleet_warm_timeout_s", str(FLEET_WARM_TIMEOUT_S), "--device", device.type],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, stderr=err,
+        text=True)
+    out = {}
+    try:
+        line = proc.stdout.readline()
+        match = re.match(r"fleet router on http://([\d.]+):(\d+)", line)
+        check(match is not None, f"fleet did not start: {line!r}")
+        host, port = match.group(1), int(match.group(2))
+        start_to_warm = _wait_fleet(host, port, ("w1", "w2"), keys, FLEET_START_TIMEOUT_S,
+                                    t_start)
+        used_2 = card_used_gib()
+        stats = _fleet_stats(host, port)
+        per_key = {}
+        for wid in ("w1", "w2"):
+            inventory = stats["workers"][wid]["engine"]["compile_inventory"]
+            per_key[wid] = {label: (i["k1_launches"], i["k2_launches"], i["csr_builds"])
+                            for label, i in inventory.items()}
+            check(len(per_key[wid]) == 2 and all(c == FLEET_COUNTS
+                                                 for c in per_key[wid].values()),
+                  f"{wid} inventory {per_key[wid]}, expected 2 keys of {FLEET_COUNTS}")
+            check(stats["fleet"]["workers"][wid]["health"]["weights_signature"] == sigs[0],
+                  f"{wid} serves {stats['fleet']['workers'][wid]['health']}")
+        log(f"  2 workers warm (status ok, {list(keys)}); start to warm "
+            + ", ".join(f"{w} {s:.3f} s" for w, s in sorted(start_to_warm.items()))
+            + f"; each key (K1, K2, CSR builds) {FLEET_COUNTS}: {per_key}; card memory in use "
+            f"{used_before:.3f} GiB before, {used_2:.3f} GiB with 2 workers")
+        routed = {}
+        for raw, body, ref in zip(raws, bodies, want[0]):
+            status, res = _post(host, port, "/predict", body,
+                                {"Content-Type": "application/octet-stream"})
+            check(status == 200, f"routed /predict {status}: {str(res)[:300]}")
+            label = "x".join(map(str, res["bucket"]))
+            routed[label] = dict(zip(("bitwise", "max_abs_diff"), _same(res["contact_probs"], ref)))
+            check(routed[label]["bitwise"] or routed[label]["max_abs_diff"] <= 1e-6,
+                  f"routed /predict {label} vs an in-process replay: {routed[label]}")
+        library = ChainLibrary.from_complex_files(route_files)
+        status, screen = _post_json(host, port, "/screen", {"npz_paths": route_files, "top_k": 10})
+        check(status == 200, f"routed /screen {status}: {str(screen)[:300]}")
+        direct = ScreenRunner(refs[0], cache=EmbeddingCache(), cfg=ScreenConfig(
+            top_k=10, decode_batch=8, encode_batch=8)).screen(library, enumerate_pairs(library))
+        routed["screen"] = _check_records("routed /screen vs an in-process ScreenRunner",
+                                          screen["ranked"], direct.records)
+        log(f"  routed /predict vs in-process replays of the same key: {routed}")
+
+        # 11e (part): routed against direct latency per bucket, medians of 10.
+        ports = {wid: w["port"] for wid, w in stats["fleet"]["workers"].items()
+                 if w["state"] == "healthy"}
+        latency = {}
+        for raw, body in zip(raws, bodies):
+            label = "x".join(map(str, refs[0].bucket_for(raw["graph1"]["node_feats"].shape[0],
+                                                         raw["graph2"]["node_feats"].shape[0])))
+            times = {"routed": [], "direct": []}
+            for _ in range(FLEET_TIME_RUNS):
+                for kind, (h, p) in (("routed", (host, port)), ("direct", (host, ports["w1"]))):
+                    t0 = time.perf_counter()
+                    status, _ = _post(h, p, "/predict", body,
+                                      {"Content-Type": "application/octet-stream"})
+                    times[kind].append(time.perf_counter() - t0)
+                    check(status == 200, f"{kind} /predict {status}")
+            latency[label] = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+            log(f"  {label}: routed {latency[label]['routed']:.3f} ms, direct (worker w1) "
+                f"{latency[label]['direct']:.3f} ms (HTTP round trip, medians of "
+                f"{FLEET_TIME_RUNS}) [{smi}]")
+
+        log("  11c: SIGKILL of a worker under 16 concurrent /predict clients")
+        load = _Load(host, port, bodies, FLEET_LOAD_THREADS)
+        load.wait_for(2 * FLEET_LOAD_THREADS)
+        victim = _fleet_stats(host, port)["fleet"]["workers"]["w1"]["pid"]
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        load.wait_for(load.count() + 4 * FLEET_LOAD_THREADS)
+        results = load.stop()
+        failed = [r for r in results if r[2] != 200]
+        check(not failed, f"{len(failed)} of {len(results)} requests failed across the SIGKILL: "
+              f"{failed[:3]}")
+        rewarm = _wait_fleet(host, port, ("w1",), keys, FLEET_START_TIMEOUT_S, t_kill)
+        info = _fleet_stats(host, port)["fleet"]["workers"]["w1"]
+        check(info["restarts"] == 1 and info["pid"] != victim, f"w1 after the kill: {info}")
+        answering = set()
+        for _ in range(8):
+            status, res = _post(host, port, "/predict", bodies[0],
+                                {"Content-Type": "application/octet-stream"})
+            check(status == 200, f"/predict after the restart {status}")
+        for _ in range(8):
+            conn = http.client.HTTPConnection(host, port, timeout=120)
+            conn.request("POST", "/predict", body=bodies[1],
+                         headers={"Content-Type": "application/octet-stream"})
+            resp = conn.getresponse()
+            resp.read()
+            answering.add(resp.getheader("X-DI-Worker"))
+            conn.close()
+        check(answering == {"w1", "w2"}, f"after the restart X-DI-Worker shows {answering}")
+        out["failover"] = {"requests": len(results), "failed": 0,
+                           "restart_to_warm_s": rewarm["w1"], "answering": sorted(answering)}
+        log(f"  {len(results)} requests across the SIGKILL, 0 failed; w1 restarted and warm "
+            f"{rewarm['w1']:.3f} s after the kill; both workers answer afterwards")
+
+        log(f"  11d: rollover to a second weights file under {ROLLOVER_LOAD_THREADS} clients")
+        load = _Load(host, port, bodies, ROLLOVER_LOAD_THREADS)
+        load.wait_for(4 * ROLLOVER_LOAD_THREADS)
+        peak = {"used": card_used_gib()}
+        sampling = threading.Event()
+
+        def sample():
+            while not sampling.is_set():
+                peak["used"] = max(peak["used"], card_used_gib())
+                time.sleep(0.2)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        old_ids = sorted(w for w, i in _fleet_stats(host, port)["fleet"]["workers"].items()
+                         if i["state"] == "healthy")
+        t0 = time.perf_counter()
+        status, record = _post_json(host, port, "/admin/rollover",
+                                    {"weights": weights[1], "weights_signature": sigs[1]},
+                                    timeout=FLEET_WARM_TIMEOUT_S + 200)
+        t1 = time.perf_counter()
+        sampling.set()
+        sampler.join(timeout=10)
+        load.wait_for(load.count() + 2 * ROLLOVER_LOAD_THREADS)
+        results = load.stop()
+        check(status == 200 and record.get("rollover", {}).get("ok"),
+              f"rollover {status}: {str(record)[:400]}")
+        roll = record["rollover"]
+        check(sorted(roll["old_workers"]) == old_ids
+              and set(roll["drain_exit_codes"].values()) == {0},
+              f"old workers' exit codes {roll['drain_exit_codes']}")
+        bad = [r for r in results if r[2] >= 500 or r[2] < 0]
+        check(not bad, f"{len(bad)} 5xx or failed of {len(results)} during the rollover: {bad[:3]}")
+        before = _percentiles([r[1] for r in results if r[0] < t0])
+        during = _percentiles([r[1] for r in results if t0 <= r[0] <= t1])
+        after = {}
+        for raw, body, ref in zip(raws, bodies, want[1]):
+            status, res = _post(host, port, "/predict", body,
+                                {"Content-Type": "application/octet-stream"})
+            check(status == 200, f"/predict after the rollover {status}")
+            label = "x".join(map(str, res["bucket"]))
+            after[label] = dict(zip(("bitwise", "max_abs_diff"), _same(res["contact_probs"], ref)))
+            check(after[label]["bitwise"] or after[label]["max_abs_diff"] <= 1e-6,
+                  f"/predict {label} after the rollover vs the new weights: {after[label]}")
+        out["rollover"] = {"elapsed_s": roll["elapsed_s"], "requests": len(results),
+                           "errors_5xx": 0, "drain_exit_codes": roll["drain_exit_codes"],
+                           "latency_before": before, "latency_during": during,
+                           "maps_vs_new_weights": after, "card_used_gib_peak": peak["used"]}
+        log(f"  rollover {roll['old_workers']} -> {roll['new_workers']} in {roll['elapsed_s']} s, "
+            f"old workers exit {roll['drain_exit_codes']}; {len(results)} requests, 0 5xx; "
+            f"latency before p50 {before.get('p50_ms', 0):.3f} / p99 {before.get('p99_ms', 0):.3f} "
+            f"ms ({before['n']}), during p50 {during.get('p50_ms', 0):.3f} / p99 "
+            f"{during.get('p99_ms', 0):.3f} ms ({during['n']}); maps after vs the new weights "
+            f"{after}; card memory in use at most {peak['used']:.3f} GiB (4 workers at the "
+            f"overlap) [{smi}]")
+
+        t0 = time.perf_counter()
+        status, record = _post_json(host, port, "/admin/rollover",
+                                    {"weights": weights[0], "weights_signature": ABSENT_SIGNATURE},
+                                    timeout=FLEET_WARM_TIMEOUT_S + 200)
+        abort_s = time.perf_counter() - t0
+        check(status == 500 and record.get("ok") is False and "not warm" in record.get("error", ""),
+              f"rollover to an unreachable signature: {status} {str(record)[:300]}")
+        for body, ref in zip(bodies, want[1]):
+            status, res = _post(host, port, "/predict", body,
+                                {"Content-Type": "application/octet-stream"})
+            bitwise, diff = _same(res["contact_probs"], ref) if status == 200 else (False, 0)
+            check(status == 200 and (bitwise or diff <= 1e-6),
+                  f"/predict after the aborted rollover: {status}")
+        out["aborted_rollover_s"] = abort_s
+        # Coalesced groups under load ask for batch keys beyond the warm-up's
+        # b1: each worker's inventory at the end.
+        workers = _fleet_stats(host, port)["workers"]
+        out["inventory_after_load"] = {
+            wid: sorted(w["engine"]["compile_inventory"]) for wid, w in workers.items()
+            if isinstance(w, dict) and "engine" in w}
+        log(f"  graph inventory after the load: {out['inventory_after_load']}")
+        log(f"  rollover to {ABSENT_SIGNATURE}: aborted after {abort_s:.3f} s (warm timeout "
+            f"{FLEET_WARM_TIMEOUT_S} s), the fleet keeps serving the second weights")
+        out.update({"start_to_warm_s": start_to_warm, "per_key": per_key,
+                    "fleet_worker_per_capture": FLEET_COUNTS[0],
+                    "card_used_gib": {"before": used_before, "two_workers": used_2,
+                                      "rollover_peak": peak["used"]},
+                    "routed_vs_in_process": routed, "latency_ms": latency})
+    except BaseException:
+        log(f"  fleet failed; router log:\n{_tail(err_path)}")
+        for name in sorted(os.listdir(fleet_dir)) if os.path.isdir(fleet_dir) else ():
+            if name.endswith(".log"):
+                log(f"  {name}:\n{_tail(os.path.join(fleet_dir, name))}")
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            stdout, _ = proc.communicate(timeout=150)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, _ = proc.communicate(timeout=30)
+        err.close()
+        for ref in refs:
+            ref.close()
+    check(proc.returncode == 0, f"the fleet exited {proc.returncode}")
+    record = _check_contract("fleet", stdout)
+    check(record["restarts"] == 1 and record["rollovers"] == 1 and record["ok"],
+          f"fleet/v1 {record}")
+    out["contract"] = {k: record[k] for k in ("restarts", "rollovers", "failovers", "routed")}
+    log(f"  fleet drained: exit 0, fleet/v1 {out['contract']}")
+    return out
+
+
+def run_fleet_phase(cfg, seed, device, smi, work) -> dict:
+    """Phase 11: the split-phase routes in process, then the fleet."""
+    log("== phase 11: split-phase routes and the serving fleet (flagship width)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    routes = run_routes(cfg, seed, device, work)
+    route_files = [os.path.join(work, f"route{i}.npz") for i in range(len(ROUTE_LIBRARY))]
+    fleet = run_fleet(cfg, seed, device, smi, work, route_files)
+    seconds = time.perf_counter() - t0
+    log(f"  phase 11: {seconds:.1f} s")
+    return {"routes": routes, **fleet, "seconds": seconds}
 
 
 def main(argv=None) -> int:
@@ -2499,7 +3079,9 @@ def main(argv=None) -> int:
     serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
                           device, smi)
     serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
-    screening = run_screening(cfg, args.seed, device, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work:
+        screening = run_screening(cfg, args.seed, device, smi, work)
+        fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
     log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                   if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
@@ -2523,7 +3105,10 @@ def main(argv=None) -> int:
                                         for name, c in serving["configs"].items()},
                                      "screen": screening["launches"][2],
                                      "screen_encode_per_capture":
-                                         screening["per_encode_capture"][2]},
+                                         screening["per_encode_capture"][2],
+                                     "route_screen_per_encode_capture": ENCODE_COUNTS[2],
+                                     "route_assembly": fleet["routes"]["assembly"]["launches"][2],
+                                     "fleet_worker_per_capture": FLEET_COUNTS[2]},
               "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
                              ("tiled_two", "deeplab"))},
                          "importer": {k: v for k, v in importer.items() if k != "launches"},
@@ -2563,7 +3148,14 @@ def main(argv=None) -> int:
                              # capture), per encode capture, and the encode replays.
                              "screen": screening["launches"][0],
                              "screen_encode_per_capture": screening["per_encode_capture"][0],
-                             "screen_encode_replays": screening["encode_replays"]},
+                             "screen_encode_replays": screening["encode_replays"],
+                             # Phase 11: at each encode capture of the /screen route,
+                             # around the /assembly route, and at each capture of a
+                             # fleet worker (its /stats compile_inventory).
+                             "route_screen_per_encode_capture":
+                                 fleet["routes"]["route_screen_per_encode_capture"],
+                             "route_assembly": fleet["routes"]["route_assembly"],
+                             "fleet_worker_per_capture": fleet["fleet_worker_per_capture"]},
         "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
         "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
         "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
@@ -2589,7 +3181,10 @@ def main(argv=None) -> int:
                              **{f"serve_{name}_per_capture": c["per_capture"][1]
                                 for name, c in serving["configs"].items()},
                              "screen": screening["launches"][1],
-                             "screen_encode_per_capture": screening["per_encode_capture"][1]},
+                             "screen_encode_per_capture": screening["per_encode_capture"][1],
+                             "route_screen_per_encode_capture": ENCODE_COUNTS[1],
+                             "route_assembly": fleet["routes"]["assembly"]["launches"][1],
+                             "fleet_worker_per_capture": FLEET_COUNTS[1]},
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
         "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -2607,6 +3202,7 @@ def main(argv=None) -> int:
     }]
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"screening": screening}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -192,6 +192,14 @@ def add_serving_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--warmup_buckets", type=str, default="",
                    help="comma list of B1xB2xBATCH keys captured at startup (e.g. "
                         "128x128x1,128x128x8) so first requests replay warm graphs")
+    g.add_argument("--mesh_shape", type=str, default="",
+                   help="serving mesh as DATAxPAIR device counts (the JAX flag). An "
+                        "engine worker of this port serves one device: any shape but "
+                        "'' or 1x1 exits 2. Stub workers advertise it, so the router's "
+                        "topology-aware routing can be rehearsed")
+    g.add_argument("--pair_shard_threshold", type=int, default=512,
+                   help="bucket pad at/above which a mesh with a pair axis would decode "
+                        "row-sharded; the router uses it for topology-aware routing")
     g.add_argument("--result_cache_size", type=int, default=256,
                    help="LRU entries of depadded contact maps keyed on a content hash of "
                         "the featurized complex (0 disables)")
@@ -226,6 +234,93 @@ def add_serving_args(p: argparse.ArgumentParser) -> None:
                    help="periodic liveness file (obs/heartbeat.py)")
     g.add_argument("--heartbeat_interval_s", type=float, default=5.0,
                    help="heartbeat write cadence for --heartbeat_file")
+    g.add_argument("--screen_max_pairs", type=int, default=512,
+                   help="largest synchronous POST /screen (pairs); bigger screens are "
+                        "refused 400 toward cli/screen.py. Indexed screens are exempt: "
+                        "they stream decode micro-batches with partial-result flushes "
+                        "under the deadline")
+    g.add_argument("--index_path", type=str, default=None,
+                   help="proteome-index directory (cli/index.py build) opened and "
+                        "verified at startup; POST /screen with {\"indexed\": true} then "
+                        "ranks partners against it. Reaches every fleet worker through "
+                        "the shared base argv")
+    g.add_argument("--parent_pid", type=int, default=0,
+                   help="drain and exit when this process is no longer our parent (the "
+                        "fleet supervisor sets it, so a hard-killed supervisor never "
+                        "leaves workers serving; 0 disables)")
+    f = p.add_argument_group(
+        "fleet", "multi-worker serving (serving/fleet.py + router.py): a supervisor "
+        "keeps N engine-worker processes alive behind an HTTP router with "
+        "health-checked failover and zero-downtime warm rollover (POST "
+        "/admin/rollover or SIGHUP)")
+    f.add_argument("--workers", type=int, default=0,
+                   help="> 0: run the fleet (supervisor + router on --port, N engine "
+                        "workers on free ports, each capturing its own CUDA graphs); "
+                        "0 = the single-engine server")
+    f.add_argument("--fleet_stub_workers", action="store_true",
+                   help="rehearsal fleet: workers are serving/worker_stub.py null "
+                        "engines (no model, no device, sub-second startup)")
+    f.add_argument("--fleet_dir", type=str, default=None,
+                   help="supervisor state dir (heartbeats, worker logs, "
+                        "fleet_state.json); default: a fresh temp dir")
+    f.add_argument("--probe_interval_s", type=float, default=1.0,
+                   help="supervisor monitor cadence: process poll + /healthz probe + "
+                        "heartbeat staleness per tick")
+    f.add_argument("--heartbeat_max_age_s", type=float, default=15.0,
+                   help="a worker heartbeat older than this is stale (unroutable); 3x "
+                        "older with a live process is wedged and gets SIGKILLed into "
+                        "the restart path")
+    f.add_argument("--restart_backoff_s", type=float, default=0.5,
+                   help="base of the exponential restart backoff for crashed workers "
+                        "(jittered, capped at 30s)")
+    f.add_argument("--circuit_max_restarts", type=int, default=5,
+                   help="restarts inside --circuit_window_s after which a flapping "
+                        "worker's circuit opens (no more restarts; the rest of the "
+                        "fleet keeps serving)")
+    f.add_argument("--circuit_window_s", type=float, default=60.0,
+                   help="sliding window for --circuit_max_restarts")
+    f.add_argument("--fleet_warm_timeout_s", type=float, default=300.0,
+                   help="rollover bound: how long a replacement worker may take to "
+                        "report warm before the rollover aborts (old fleet keeps "
+                        "serving)")
+    f.add_argument("--rollover", action="store_true",
+                   help="client mode: POST /admin/rollover to the fleet router at "
+                        "--host/--port and exit (final stdout line is the fleet/v1 "
+                        "contract)")
+    f.add_argument("--rollover_ckpt", type=str, default=None,
+                   help="with --rollover: checkpoint dir the replacement workers "
+                        "restore (default: same as the running fleet)")
+    f.add_argument("--rollover_signature", type=str, default=None,
+                   help="with --rollover: required weights_signature the replacements "
+                        "must report before traffic switches")
+    f.add_argument("--autoscale", action="store_true",
+                   help="with --workers: run the elastic capacity controller "
+                        "(serving/autoscaler.py) — grow/shrink the worker set from "
+                        "queue depth, shed pressure and router p99, with hysteresis, "
+                        "cooldown, warm-before-adopt scale-up and drain-through "
+                        "scale-down")
+    f.add_argument("--autoscale_min_workers", type=int, default=1,
+                   help="autoscaler floor: never drain below this many workers")
+    f.add_argument("--autoscale_max_workers", type=int, default=4,
+                   help="autoscaler ceiling: never spawn above this many workers")
+    f.add_argument("--autoscale_interval_s", type=float, default=1.0,
+                   help="autoscaler control period (signal sample + streak advance "
+                        "per tick)")
+    f.add_argument("--autoscale_queue_high", type=float, default=2.0,
+                   help="mean in-flight per routable worker at/above which a poll "
+                        "counts as a scale-UP breach")
+    f.add_argument("--autoscale_queue_low", type=float, default=0.25,
+                   help="mean in-flight per routable worker at/below which (with no "
+                        "shed pressure) a poll counts as a scale-DOWN breach")
+    f.add_argument("--autoscale_breach_polls", type=int, default=3,
+                   help="consecutive breaching polls required before the autoscaler "
+                        "acts (hysteresis)")
+    f.add_argument("--autoscale_cooldown_s", type=float, default=10.0,
+                   help="hold-down after any autoscale action")
+    f.add_argument("--versions", action="store_true",
+                   help="client mode: GET /admin/versions from the fleet router at "
+                        "--host/--port and exit (final stdout line is the versions/v1 "
+                        "contract)")
 
 
 def add_screening_args(p: argparse.ArgumentParser) -> None:

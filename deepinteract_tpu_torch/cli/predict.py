@@ -41,7 +41,8 @@ from deepinteract_tpu_torch.device import resolve_device
 from deepinteract_tpu_torch.models.model import DeepInteract, ModelConfig
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.training.checkpoint import CheckpointConfig, Checkpointer
-from deepinteract_tpu_torch.weights import init_weights, load_jax_variables, load_npz
+from deepinteract_tpu_torch.weights import (carried_signature, init_weights, load_jax_variables,
+                                            load_npz, seeded_signature)
 
 REPRESENTATIONS = ("graph1_node_feats", "graph2_node_feats",
                    "graph1_edge_feats", "graph2_edge_feats")
@@ -112,17 +113,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.weights and args.ckpt_name:
         parser.error("give --weights or --ckpt_name, not both")
-    cal = None
-    if args.calibration:
-        # Verified before the model is built: a stale or corrupt artifact
-        # is refused in milliseconds. The signature is the engine's
-        # weights_signature for the same flags.
-        from deepinteract_tpu_torch.calibration import load_calibration
-
-        cal = load_calibration(
-            args.calibration,
-            expect_signature=args.ckpt_name or args.weights or f"init-seed{args.seed}",
-            allow_stale=args.allow_stale_calibration)
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
@@ -131,6 +121,18 @@ def main(argv=None) -> int:
 
     model = load_model(model_config_from_args(args), device, args.weights, args.seed,
                        args.ckpt_name, args.metric_to_track)
+    cal = None
+    if args.calibration:
+        # Verified before any prediction, against the engine's
+        # weights_signature for the same flags (a digest of the loaded
+        # state for --weights).
+        from deepinteract_tpu_torch.calibration import load_calibration
+
+        cal = load_calibration(
+            args.calibration,
+            expect_signature=args.ckpt_name or (
+                carried_signature(model) if args.weights else seeded_signature(args.seed)),
+            allow_stale=args.allow_stale_calibration)
     out = predict_complex(load_complex_npz(args.input_npz), model, device)
     os.makedirs(args.output_dir, exist_ok=True)
     saved = []

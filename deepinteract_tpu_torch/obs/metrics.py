@@ -1,8 +1,7 @@
-"""Process-wide metrics registry: counters, gauges, fixed-bucket histograms,
-and their Prometheus text exposition (:func:`render`).
+"""Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
 
-Port of ``deepinteract_tpu/obs/metrics.py`` and ``obs/expfmt.py``
-(stdlib only, so the port keeps its own copy). One registry instance
+Port of ``deepinteract_tpu/obs/metrics.py`` (stdlib only, so the port
+keeps its own copy); ``obs/expfmt.py`` renders it as Prometheus text. One registry instance
 serves the whole process: the training supervisor and the retry helper
 record into it. Prometheus conventions apply: counters only go up and end
 in ``_total``, histograms carry cumulative fixed buckets, label sets are
@@ -360,49 +359,3 @@ def gauge(name: str, help: str = "", labelnames: Sequence[str] = ()) -> Gauge:
 def histogram(name: str, help: str = "", labelnames: Sequence[str] = (),
               buckets: Optional[Sequence[float]] = None) -> Histogram:
     return _REGISTRY.histogram(name, help, labelnames, buckets=buckets)
-
-
-# -- Prometheus text exposition (format 0.0.4) ---------------------------------
-
-# The content type Prometheus scrapers negotiate for the text format.
-CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-
-
-def _escape_help(text: str) -> str:
-    return text.replace("\\", r"\\").replace("\n", r"\n")
-
-
-def _escape_label_value(text: str) -> str:
-    return (text.replace("\\", r"\\").replace("\n", r"\n")
-            .replace('"', r"\""))
-
-
-def _fmt_value(value: float) -> str:
-    if math.isnan(value):
-        return "NaN"
-    if math.isinf(value):
-        return "+Inf" if value > 0 else "-Inf"
-    if float(value).is_integer() and abs(value) < 1e15:
-        return str(int(value))
-    return repr(float(value))
-
-
-def render(registry: Optional[MetricsRegistry] = None) -> str:
-    """The whole registry as Prometheus text; deterministic ordering
-    (families by name, series by label values) so scrapes diff cleanly."""
-    reg = registry if registry is not None else get_registry()
-    lines = []
-    for fam in reg.collect():
-        if fam.help:
-            lines.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
-        lines.append(f"# TYPE {fam.name} {fam.kind}")
-        for suffix, labels, value in fam.samples():
-            if labels:
-                body = ",".join(
-                    f'{k}="{_escape_label_value(str(v))}"'
-                    for k, v in labels.items())
-                lines.append(
-                    f"{fam.name}{suffix}{{{body}}} {_fmt_value(value)}")
-            else:
-                lines.append(f"{fam.name}{suffix} {_fmt_value(value)}")
-    return "\n".join(lines) + "\n"

@@ -38,6 +38,19 @@ Sites of the port:
   stacked: ``BatchExecutionError(stage="assembly")``, its group only
 * ``serving.dispatch``   fails a coalesced batch before its graph replay:
   ``BatchExecutionError(stage="dispatch")``, its group only
+* ``fleet.spawn``        raises OSError before a worker process is spawned
+  (``serving/fleet.py``; the restart backoff path)
+* ``fleet.probe``        raises ConnectionError at a worker health probe (a
+  healthy worker looks unreachable to the supervisor)
+* ``fleet.kill``         raises OSError when the supervisor signals a
+  worker (a drain's SIGTERM fails; the SIGKILL fallback must still retire
+  the worker)
+* ``fleet.preempt``      fires once per supervisor poll tick: the newest
+  routable worker is preempted (SIGTERM, no circuit penalty, immediate
+  replacement)
+* ``autoscale.decision`` raises RuntimeError when an autoscaler decision
+  would commit (``serving/autoscaler.py``); the tick counts it and leaves
+  the fleet unchanged
 
 With no plan configured every probe is a lookup in an empty map.
 """
@@ -49,8 +62,6 @@ import logging
 import os
 import threading
 from typing import Dict, Optional, Set, Union
-
-import torch
 
 logger = logging.getLogger(__name__)
 
@@ -145,6 +156,8 @@ def poison_nan(batch):
     """The batch (a dataclass of tensors, nested) with every floating
     tensor filled with NaN: the bad-batch injection for the non-finite
     guard."""
+    import torch  # here, not at import: the fleet's control plane imports this module
+
     if isinstance(batch, torch.Tensor):
         return torch.full_like(batch, float("nan")) if batch.is_floating_point() else batch
     if dataclasses.is_dataclass(batch):

@@ -46,7 +46,6 @@ are not ported.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import logging
 import threading
 import time
@@ -77,9 +76,11 @@ from deepinteract_tpu_torch.serving.admission import (
     expired_counter,
 )
 from deepinteract_tpu_torch.serving.cache import ResultCache, content_hash
+from deepinteract_tpu_torch.serving.fleet import batch_slots
 from deepinteract_tpu_torch.serving.graphs import (decode_forward, encode_forward, make_entry,
                                                    serve_forward)
 from deepinteract_tpu_torch.serving.scheduler import MicroBatchScheduler
+from deepinteract_tpu_torch.weights import carried_signature, seeded_signature
 
 logger = logging.getLogger(__name__)
 
@@ -134,27 +135,12 @@ class EngineConfig:
     max_inflight: int = 256
 
 
-def batch_slots(n_requests: int, max_batch: int) -> int:
-    """Coalesced-group padding policy: next power of two, capped at
-    ``max_batch`` (``deepinteract_tpu/serving/fleet.py:batch_slots`` on a
-    single device)."""
-    slots = 1 << (max(1, int(n_requests)) - 1).bit_length()
-    return min(slots, max(1, int(max_batch)))
-
-
 def _as_tensor(x) -> torch.Tensor:
     """A host array as a tensor; a read-only array (a cached embedding) is
     copied, since torch tensors cannot be read-only."""
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()
     return torch.as_tensor(x)
-
-
-def _state_digest(model) -> str:
-    h = hashlib.sha256()
-    for name, t in model.state_dict().items():
-        h.update(name.encode() + t.detach().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
 
 
 class InferenceEngine:
@@ -213,10 +199,10 @@ class InferenceEngine:
         self._seed = int(seed)
         if ckpt_dir:
             self.restored_from = ckpt_dir
-        elif isinstance(weights, Mapping):
-            self.restored_from = f"jax-variables:{_state_digest(self.model)}"
+        elif weights is not None:
+            self.restored_from = carried_signature(self.model)
         else:
-            self.restored_from = weights or None
+            self.restored_from = None
         if cfg.warmup_buckets:
             self.warmup(cfg.warmup_buckets)
         self.admission = AdmissionController(
@@ -267,8 +253,9 @@ class InferenceEngine:
     # -- graph cache -------------------------------------------------------
 
     def weights_signature(self) -> str:
-        """Identity of the served weights (what /healthz advertises)."""
-        return self.restored_from or f"init-seed{self._seed}"
+        """Identity of the served weights (what /healthz advertises, and
+        what embedding keys, indexes and calibrations are bound to)."""
+        return self.restored_from or seeded_signature(self._seed)
 
     def warm_bucket_labels(self) -> list:
         """Sorted inventory labels (the ``compiled_buckets`` keys of

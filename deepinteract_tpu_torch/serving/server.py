@@ -1,7 +1,6 @@
 """Stdlib HTTP JSON API over the :class:`InferenceEngine`.
 
-Port of ``deepinteract_tpu/serving/server.py`` for ``/predict`` and the
-observability routes. No web framework — ``http.server.ThreadingHTTPServer``
+Port of ``deepinteract_tpu/serving/server.py``. No web framework — ``http.server.ThreadingHTTPServer``
 is enough for a JSON control plane whose heavy lifting (batching, graph
 reuse) lives in the engine: handler threads parse the upload with numpy,
 enqueue, and block on the future while the scheduler thread owns the card.
@@ -17,10 +16,38 @@ Endpoints:
   :mod:`deepinteract_tpu_torch.obs.reqtrace`), the same numbers recorded
   as ``di_request_*`` histograms and, with a span sink configured, as
   ``request_*`` events under that ``trace_id``.
+* ``POST /screen`` — small SYNCHRONOUS bulk screen: JSON ``{"npz_paths":
+  [...complex npz...], "top_k": 10, "include_self": false, "max_pairs":
+  0, "query": ["name:g1", ...]}``. The listed complexes are split into
+  chains and every pair is scored through the split phase (N encodes +
+  N^2 micro-batched decodes over the server's shared embedding cache,
+  ``deepinteract_tpu_torch.screening``); the ranked records come back in
+  the response. Screens above ``screen_max_pairs`` are refused with 400
+  (``cli/screen.py``, with its manifest and resume, is the tool for
+  those). ``{"indexed": true}`` with ``--index_path``, or a payload
+  ``index_path``, makes it a ranked-partner query against a proteome
+  index (``deepinteract_tpu_torch.index``): exempt from
+  ``screen_max_pairs``, and an expired deadline flushes the partners
+  ranked so far with ``partial: true``.
+* ``POST /assembly`` — synchronous k-chain assembly
+  (``deepinteract_tpu_torch.assembly``): C(k, 2) pairs count against
+  ``screen_max_pairs``.
 * ``GET /healthz`` — status (``ok`` / ``overloaded`` / ``draining``), the
-  served weights' identity and the warm graph inventory.
+  served weights' identity, the warm graph inventory and the in-flight
+  count (what the fleet router and autoscaler read).
 * ``GET /stats`` — queue depth, per-bucket graph inventory, result-cache
-  hit rate, request-latency percentiles, the shedder's state.
+  hit rate, request-latency percentiles, the shedder's state and a
+  ``screening`` block (``/screen`` request counts, the shared embedding
+  cache's hit rate).
+
+The split-phase routes run their runners on the handler thread under
+one screen lock, never through the micro-batch scheduler: the runners
+replay the engine's encode and decode graphs under its exec lock (each
+output copied to the host under it), so a ``/predict`` group that
+flushes meanwhile waits for the lock instead of interleaving replays
+that share the graph pool. A calibration (``calibration_path``) is
+verified against the served weights at startup and annotates the ranked
+records of ``/screen`` and ``/assembly`` (raw scores kept beside).
 * ``GET /metrics`` — the process-wide registry in Prometheus text format.
   ``/stats`` percentiles come from the same registry histogram.
 
@@ -42,6 +69,7 @@ import io
 import json
 import logging
 import math
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -50,10 +78,17 @@ from urllib.parse import parse_qs
 
 import numpy as np
 
+from deepinteract_tpu_torch.assembly import AssemblyConfig, AssemblyRunner
+from deepinteract_tpu_torch.calibration.calibrator import annotate_records, load_calibration
 from deepinteract_tpu_torch.data.io import GRAPH_KEYS, load_complex_npz
+from deepinteract_tpu_torch.index import ChainIndex, IndexedQueryRunner, QueryConfig
+from deepinteract_tpu_torch.obs import expfmt
 from deepinteract_tpu_torch.obs import metrics as obs_metrics
 from deepinteract_tpu_torch.obs.reqtrace import RequestTrace
+from deepinteract_tpu_torch.robustness import artifacts
 from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard
+from deepinteract_tpu_torch.screening import (ChainLibrary, EmbeddingCache, ScreenConfig,
+                                              ScreenRunner, enumerate_pairs)
 from deepinteract_tpu_torch.serving.admission import (
     Deadline,
     DeadlineExceeded,
@@ -73,7 +108,7 @@ logger = logging.getLogger(__name__)
 _REQUESTS = obs_metrics.counter(
     "di_serving_requests_total", "HTTP requests answered",
     labelnames=("endpoint", "status"))
-_ROUTES = ("/predict", "/healthz", "/stats", "/metrics")
+_ROUTES = ("/predict", "/screen", "/assembly", "/healthz", "/stats", "/metrics")
 
 
 def raw_from_npz_bytes(body: bytes) -> Dict:
@@ -137,12 +172,16 @@ class ServingServer:
 
     def __init__(self, engine: InferenceEngine, host: str = "127.0.0.1",
                  port: int = 8008, request_timeout_s: float = 120.0,
+                 screen_max_pairs: int = 512,
                  default_deadline_ms: float = 0.0,
-                 shedder_cfg: Optional[ShedderConfig] = None):
+                 shedder_cfg: Optional[ShedderConfig] = None,
+                 index_path: Optional[str] = None,
+                 calibration_path: Optional[str] = None):
         self.engine = engine
         self.latency = _LatencyTracker()
         self._draining = threading.Event()
         self.request_timeout_s = request_timeout_s
+        self.screen_max_pairs = int(screen_max_pairs)
         # Requests without their own deadline get this budget; <= 0 means
         # no deadline (request_timeout_s is then the only bound).
         self.default_deadline_ms = float(default_deadline_ms)
@@ -150,6 +189,28 @@ class ServingServer:
         # per POST and per /healthz — no background thread.
         self.shedder = LoadShedder(shedder_cfg or ShedderConfig(),
                                    self._shed_signals)
+        # Screens share one embedding cache across requests (a library
+        # chain re-screened later skips its encode) and serialize on one
+        # lock: each screen is many replays, and two interleaved screens
+        # would only thrash the card.
+        self._screen_cache: Optional[EmbeddingCache] = None
+        self._screen_lock = threading.Lock()
+        # Opened proteome indexes are cached per path (shards verify once,
+        # stay resident). A --index_path preload happens HERE, so a worker
+        # with a bad or stale index fails at startup, not on its first query.
+        self.index_path = index_path
+        self._indices: Dict[str, Any] = {}
+        self._index_lock = threading.Lock()
+        if index_path:
+            self._get_index(index_path)
+        # Verified at startup against the served weights: a worker with a
+        # stale or corrupt map fails HERE, not by rescaling its first
+        # response.
+        self.calibration_path = calibration_path
+        self.calibrator = None
+        if calibration_path:
+            self.calibrator = load_calibration(
+                calibration_path, expect_signature=engine.weights_signature())
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -235,17 +296,21 @@ class ServingServer:
                         "weights_signature": server.engine.weights_signature(),
                         "mesh_shape": "1x1",
                         "warm_buckets": server.engine.warm_bucket_labels(),
+                        # The autoscaler's queue-depth signal, cached by the
+                        # fleet supervisor's probe of this route.
+                        "inflight": server.engine.admission.stats()["inflight"],
                     })
                 elif route == "/stats":
                     self._send_json(200, server.stats())
                 elif route == "/metrics":
                     self._send_body(200, server.metrics_text().encode(),
-                                    obs_metrics.CONTENT_TYPE)
+                                    expfmt.CONTENT_TYPE)
                 else:
                     self._send_json(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):  # noqa: N802 - stdlib name
-                if self._route() != "/predict":
+                route = self._route()
+                if route not in ("/predict", "/screen", "/assembly"):
                     self._send_json(404, {"error": f"no route {self.path}"})
                     return
                 if server._draining.is_set():
@@ -260,6 +325,9 @@ class ServingServer:
                         server.engine.admission.retry_after_s(),
                         "server overloaded (load shedding active); "
                         "retry after the indicated delay")
+                    return
+                if route != "/predict":
+                    self._do_split_phase(route)
                     return
                 try:
                     length = int(self.headers.get("Content-Length", 0))
@@ -318,6 +386,46 @@ class ServingServer:
                     response["trace"] = result["trace"]
                 self._send_json(200, response)
 
+            def _do_split_phase(self, route: str) -> None:
+                """``POST /screen`` and ``POST /assembly``: a JSON body, the
+                runner on this thread, 400 for client mistakes, 504 for an
+                expired deadline (checked at batch boundaries)."""
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    payload = json.loads(self.rfile.read(length).decode())
+                    if not isinstance(payload, dict):
+                        raise ValueError(f"{route[1:]} body must be a JSON object")
+                    deadline = self._request_deadline(payload)
+                except Exception as exc:  # noqa: BLE001 - client error
+                    self._send_json(400, {"error": str(exc)})
+                    return
+                reqtrace = RequestTrace(route)
+                run = server.run_screen if route == "/screen" else server.run_assembly
+                t0 = time.monotonic()
+                try:
+                    out = run(payload, trace_id=reqtrace.trace_id, deadline=deadline)
+                except DeadlineExceeded as exc:
+                    self._send_json(504, {"error": str(exc), "trace_id": reqtrace.trace_id})
+                    return
+                except (ValueError, KeyError, OSError) as exc:
+                    self._send_json(400, {"error": str(exc)})
+                    return
+                except Exception as exc:  # noqa: BLE001 - surfaced to client
+                    logger.exception("%s failed", route[1:])
+                    self._send_json(500, {"error": str(exc)})
+                    return
+                out["latency_ms"] = (time.monotonic() - t0) * 1e3
+                out["trace_id"] = reqtrace.trace_id
+                # The device phases are the encode and decode walls (the
+                # replays go straight to the card, no queue).
+                encode_s = out.get("encode_seconds", 0.0)
+                decode_s = out.get("decode_seconds", 0.0)
+                reqtrace.set_phase("device", encode_s + decode_s)
+                trace = reqtrace.finish(encode=encode_s, decode=decode_s)
+                if self._trace_requested():
+                    out["trace"] = trace
+                self._send_json(200, out)
+
         self.httpd = _QuietThreadingHTTPServer((host, port), Handler)
         self._serve_thread: Optional[threading.Thread] = None
 
@@ -359,8 +467,9 @@ class ServingServer:
         try:
             self.serve_background()
             host, port = self.address
-            logger.info("serving on http://%s:%d (POST /predict, GET /healthz, "
-                        "GET /stats, GET /metrics)", host, port)
+            logger.info("serving on http://%s:%d (POST /predict, POST /screen, "
+                        "POST /assembly, GET /healthz, GET /stats, GET /metrics)",
+                        host, port)
             while not guard.requested:
                 time.sleep(poll_seconds)
             logger.warning("drain requested (%s): refusing new requests, "
@@ -371,6 +480,160 @@ class ServingServer:
             if own_guard:
                 guard.__exit__(None, None, None)
         return 0
+
+    # -- split phase -------------------------------------------------------
+
+    def _shared_cache(self) -> EmbeddingCache:
+        """The embedding cache every route shares; caller holds the screen
+        lock."""
+        if self._screen_cache is None:
+            self._screen_cache = EmbeddingCache()
+        return self._screen_cache
+
+    def _annotate(self, out: Dict) -> Dict:
+        if self.calibrator is not None:
+            annotate_records(out["ranked"], self.calibrator)
+            out["calibration"] = self.calibration_path
+        return out
+
+    def run_screen(self, payload: Dict, trace_id: str = "",
+                   deadline: Optional[Deadline] = None) -> Dict:
+        """Synchronous small screen for ``POST /screen`` (module docstring).
+        Raises ValueError/KeyError/OSError for client mistakes (400);
+        ``deadline`` is enforced at encode and decode batch boundaries
+        (DeadlineExceeded, 504). ``trace_id`` labels the screen's
+        ``screen_encode``/``screen_decode`` span events."""
+        if payload.get("index_path") or (self.index_path and payload.get("indexed")):
+            return self._run_indexed_screen(payload, deadline=deadline)
+        npz_paths = payload.get("npz_paths")
+        if not npz_paths or not isinstance(npz_paths, list):
+            raise ValueError("screen body needs 'npz_paths': a non-empty "
+                             "list of complex .npz paths")
+        library = ChainLibrary.from_complex_files([str(p) for p in npz_paths])
+        pairs = enumerate_pairs(
+            library, queries=payload.get("query"),
+            include_self=bool(payload.get("include_self", False)),
+            max_pairs=int(payload.get("max_pairs", 0)))
+        if len(pairs) > self.screen_max_pairs:
+            raise ValueError(
+                f"screen of {len(pairs)} pairs exceeds the synchronous limit "
+                f"({self.screen_max_pairs}); run cli/screen.py for large "
+                "libraries (manifest + preemption resume)")
+        batch = self.engine.cfg.max_batch
+        with self._screen_lock:
+            runner = ScreenRunner(self.engine, cache=self._shared_cache(), cfg=ScreenConfig(
+                top_k=int(payload.get("top_k", 10)), decode_batch=batch, encode_batch=batch))
+            result = runner.screen(library, pairs, trace_id=trace_id, deadline=deadline)
+        return self._annotate({"chains": result.chains, "pairs": result.pairs_total,
+                               "ranked": result.records, **result.summary()})
+
+    def run_assembly(self, payload: Dict, trace_id: str = "",
+                     deadline: Optional[Deadline] = None) -> Dict:
+        """Synchronous k-chain assembly for ``POST /assembly``: C(k, 2)
+        pairs count against ``screen_max_pairs``, the shared embedding
+        cache and screen lock serialize the card's work, and the deadline
+        is enforced at batch boundaries. Errors as :meth:`run_screen`."""
+        npz_paths = payload.get("npz_paths")
+        if not npz_paths or not isinstance(npz_paths, list):
+            raise ValueError("assembly body needs 'npz_paths': a "
+                             "non-empty list of complex .npz paths")
+        library = ChainLibrary.from_complex_files([str(p) for p in npz_paths])
+        chain_ids = payload.get("chains")
+        if chain_ids is not None and not isinstance(chain_ids, list):
+            raise ValueError("'chains' must be a list of chain ids")
+        k = len(chain_ids) if chain_ids else len(library.ids())
+        pairs = k * (k - 1) // 2
+        if pairs > self.screen_max_pairs:
+            raise ValueError(
+                f"assembly of {k} chains is {pairs} pairs, over the synchronous "
+                f"limit ({self.screen_max_pairs}); run cli/assemble.py for "
+                "large assemblies")
+        keep_maps = bool(payload.get("maps", False))
+        batch = self.engine.cfg.max_batch
+        with self._screen_lock:
+            runner = AssemblyRunner(
+                self.engine, cache=self._shared_cache(),
+                cfg=AssemblyConfig(
+                    top_k=int(payload.get("top_k", 10)), decode_batch=batch,
+                    encode_batch=batch,
+                    edge_threshold=float(payload.get("edge_threshold", 0.5)),
+                    control=bool(payload.get("control", True)), keep_maps=keep_maps),
+                calibrator=self.calibrator)
+            result = runner.assemble(library, chain_ids=chain_ids, trace_id=trace_id,
+                                     deadline=deadline)
+        out = {"ranked": result.records, "interface": result.interface,
+               "weights_signature": self.engine.weights_signature(),
+               "calibration": self.calibration_path, **result.summary()}
+        if keep_maps:
+            out["maps"] = {pid: np.asarray(m, dtype=np.float64).tolist()
+                           for pid, m in result.maps.items()}
+        return out
+
+    def _get_index(self, path: str) -> ChainIndex:
+        """Open-or-cached index handle; manifest problems surface as
+        ValueError (400), never as a silently empty index."""
+        key = os.path.abspath(str(path))
+        with self._index_lock:
+            hit = self._indices.get(key)
+            if hit is not None:
+                return hit
+        try:
+            index = ChainIndex.open(key)
+        except artifacts.ArtifactError as exc:
+            raise ValueError(f"index at {path}: {exc}") from exc
+        with self._index_lock:
+            return self._indices.setdefault(key, index)
+
+    def _run_indexed_screen(self, payload: Dict,
+                            deadline: Optional[Deadline] = None) -> Dict:
+        """Ranked-partner query against a prebuilt proteome index. Exempt
+        from ``screen_max_pairs``: the pre-filter bounds the decodes to the
+        top-M survivors whatever the library's size, and the decode loop
+        streams micro-batches under the deadline; expiry mid-decode
+        flushes the partners ranked so far with ``partial: true`` instead
+        of a 504 (a prefix of the ranking is still useful)."""
+        index = self._get_index(payload.get("index_path") or self.index_path)
+        query = payload.get("query")
+        if isinstance(query, list):
+            if len(query) != 1:
+                raise ValueError("indexed screen needs exactly one 'query' chain id")
+            query = query[0]
+        if not query:
+            raise ValueError("indexed screen needs 'query': the chain id "
+                             "to rank partners for")
+        query = str(query)
+        partitions = payload.get("partitions")
+        if partitions is not None and not isinstance(partitions, list):
+            raise ValueError("'partitions' must be a list of partition ids")
+        with self._screen_lock:
+            runner = IndexedQueryRunner(
+                self.engine, index,
+                cfg=QueryConfig(top_m=int(payload.get("top_m", 32)),
+                                top_k=int(payload.get("top_k", 10)),
+                                decode_batch=self.engine.cfg.max_batch),
+                cache=self._shared_cache(),
+                allow_stale=bool(payload.get("allow_stale", False)))
+            npz_paths = payload.get("npz_paths")
+            if npz_paths:
+                library = ChainLibrary.from_complex_files([str(p) for p in npz_paths])
+                entry = library[query]
+                result = runner.query_from_raw(entry.chain_id, entry.raw,
+                                               partitions=partitions, deadline=deadline,
+                                               on_deadline="partial")
+            else:
+                result = runner.query_from_index(query, partitions=partitions,
+                                                 deadline=deadline, on_deadline="partial")
+        return self._annotate({
+            "indexed": True,
+            "index_path": index.index_dir,
+            "query": result.query,
+            "chains": index.num_chains,
+            "partitions_served": (sorted(partitions) if partitions is not None
+                                  else index.partition_ids()),
+            "weights_signature": self.engine.weights_signature(),
+            "ranked": result.records,
+            **result.summary(),
+        })
 
     # -- observability -----------------------------------------------------
 
@@ -392,8 +655,25 @@ class ServingServer:
         return {
             "engine": self.engine.stats(),
             "latency": self.latency.stats(),
+            "screening": self.screening_stats(),
             "shedding": self.shedder.stats(),
             "draining": self._draining.is_set(),
+        }
+
+    def screening_stats(self) -> Dict[str, Any]:
+        """The ``/screen`` route's answered and refused counts (from the
+        registry counter ``/metrics`` serves) and the shared embedding
+        cache's occupancy and hit rate. Takes NO screen lock: a screen
+        holds it throughout, and /stats must not block behind the card's
+        work. The attribute read is atomic and ``EmbeddingCache.stats``
+        takes the cache's own short lock."""
+        cache = self._screen_cache
+        cache_stats = cache.stats() if cache is not None else {}
+        return {
+            "requests": _REQUESTS.value(endpoint="/screen", status="200"),
+            "requests_rejected": _REQUESTS.value(endpoint="/screen", status="400"),
+            "emb_cache_entries": int(cache_stats.get("size", 0)),
+            "emb_cache_hit_rate": float(cache_stats.get("hit_rate", 0.0)),
         }
 
     def metrics_text(self) -> str:
@@ -424,4 +704,11 @@ class ServingServer:
         g("di_serving_retry_after_seconds",
           "Current backlog-drain estimate handed to rejected clients").set(
             adm["retry_after_s"])
-        return obs_metrics.render()
+        screening = self.screening_stats()
+        g("di_serving_screen_emb_cache_entries",
+          "Embeddings resident in the shared /screen cache").set(
+            screening["emb_cache_entries"])
+        g("di_serving_screen_emb_cache_hit_rate",
+          "Shared /screen embedding-cache hit rate since startup").set(
+            screening["emb_cache_hit_rate"])
+        return expfmt.render()

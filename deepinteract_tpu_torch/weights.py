@@ -27,6 +27,7 @@ checkpoint importer (``training/import_torch.py``) fills.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import re
 from typing import Dict, Iterator, Mapping, Tuple
@@ -277,6 +278,25 @@ def _lecun_normal_(weight: torch.Tensor, gen: torch.Generator, fan_in: int):
     1 / fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+def carried_signature(model: nn.Module) -> str:
+    """The ``weights_signature`` of carried JAX variables (a tree or a
+    ``.npz``): a digest of the loaded state, so two workers that load the
+    same weights from different paths agree, and a rollover's target
+    signature proves the content that landed, not a file name."""
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode() + t.detach().cpu().numpy().tobytes())
+    return f"jax-variables:{h.hexdigest()[:16]}"
+
+
+def seeded_signature(seed: int) -> str:
+    """The ``weights_signature`` of the port's seeded init. It names the
+    package: the JAX engine calls its own (different) seeded weights
+    ``init-seed{n}``, so an index, calibration or embedding spill made by
+    one package for seeded weights is refused by the other as stale."""
+    return f"torch-init-seed{int(seed)}"
 
 
 @torch.no_grad()

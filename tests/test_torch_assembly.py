@@ -275,8 +275,8 @@ def test_cli_assemble_and_calibrate_contracts(tmp_path, capsys):
     assert calibrate_main([*TINY_CLI_ARGS, *lib, "--calibration_out", cal_path]) == 0
     rec = check_cli_contract_text(capsys.readouterr().out, "calibrate")
     assert rec["ok"] and rec["improved"] and rec["ece_calibrated"] < rec["ece_raw"]
-    assert rec["pairs"] == 15 and rec["weights_signature"] == "init-seed42"
-    assert load_calibration(cal_path, expect_signature="init-seed42").method == "temperature"
+    assert rec["pairs"] == 15 and rec["weights_signature"] == "torch-init-seed42"
+    assert load_calibration(cal_path, expect_signature="torch-init-seed42").method == "temperature"
 
     out = str(tmp_path / "asm")
     assert assemble_main([*TINY_CLI_ARGS, *lib, "--out", out, "--calibration", cal_path]) == 0
@@ -304,7 +304,7 @@ def test_cli_predict_top_k_and_calibration_contract(tmp_path, capsys):
     save_complex_npz(npz, raw["graph1"], raw["graph2"], raw["examples"])
     cal_path = str(tmp_path / "cal.json")
     save_calibration(cal_path, Calibrator(method="temperature", temperature=2.0,
-                                          weights_signature="init-seed42"))
+                                          weights_signature="torch-init-seed42"))
     out = str(tmp_path / "pred")
     argv = [*TINY_CLI_ARGS, "--input_npz", npz, "--output_dir", out, "--top_k", "7"]
     assert predict_main(argv + ["--calibration", cal_path]) == 0

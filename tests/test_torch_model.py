@@ -156,8 +156,8 @@ def test_bfloat16_policy_runs_on_cpu(carried):
     assert reps["graph1_node_feats"].dtype == torch.bfloat16
 
 
-# The training lifecycle's, the model configurations', serving's and the
-# split-phase subsystems' modules, named so that the check below fails if one
+# The training lifecycle's, the model configurations', serving's, the
+# split-phase subsystems' and the fleet's modules, named so that the check below fails if one
 # of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
@@ -170,7 +170,9 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "screening.scoring", "screening.embcache", "screening.manifest", "screening.library",
     "screening.runner", "data.packed", "calibration.calibrator", "index.format",
     "index.prefilter", "index.builder", "index.funnel", "assembly.runner",
-    "cli.screen", "cli.index", "cli.query", "cli.assemble", "cli.calibrate"))
+    "cli.screen", "cli.index", "cli.query", "cli.assemble", "cli.calibrate",
+    "serving.fleet", "serving.router", "serving.autoscaler", "serving.worker_stub",
+    "obs.expfmt"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

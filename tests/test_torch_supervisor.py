@@ -203,7 +203,7 @@ def test_retry_backoff_and_the_restart_counter():
     supervisor's restart counter in the Prometheus exposition."""
     import random
 
-    from deepinteract_tpu_torch.obs import metrics
+    from deepinteract_tpu_torch.obs import expfmt, metrics
     from deepinteract_tpu_torch.robustness.retry import compute_delay, retry
 
     rng = random.Random(0)
@@ -227,6 +227,6 @@ def test_retry_backoff_and_the_restart_counter():
     restarts = metrics.counter("di_train_supervisor_restarts_total", labelnames=("cause",))
     before = restarts.value(cause="crash")
     restarts.inc(cause="crash")
-    text = metrics.render()
+    text = expfmt.render()
     assert "# TYPE di_train_supervisor_restarts_total counter" in text
     assert f'di_train_supervisor_restarts_total{{cause="crash"}} {int(before + 1)}' in text

@@ -11,6 +11,7 @@ golden fixture's: hidden 16, 2 heads, kNN 6, 26x22 residues (padded to
 
 from __future__ import annotations
 
+import http.client
 import time
 from collections.abc import Mapping
 
@@ -123,3 +124,68 @@ def wait_until(cond, timeout: float = 30.0, poll: float = 0.002) -> None:
     while not cond():
         assert time.monotonic() < t_end, "condition not reached"
         time.sleep(poll)
+
+
+# ---------------------------------------------------------------------------
+# Fleet helpers (tests/test_torch_fleet.py, tests/test_torch_elastic.py):
+# real multi-process fleets of stub workers. Every wait polls with a bound;
+# ports come from the OS.
+# ---------------------------------------------------------------------------
+
+# Stub knobs shared by every fleet: fast beats, fast probes.
+STUB_OVERRIDES = {"weights_signature": "v1", "delay_ms": 5, "heartbeat_interval_s": 0.2}
+
+
+def make_supervisor(tmp_path, n=2, overrides=None, cmd_fn=None, **cfg_kw):
+    from deepinteract_tpu_torch.serving.fleet import (FleetConfig, WorkerSupervisor,
+                                                      stub_worker_cmd)
+
+    cfg_kw.setdefault("probe_interval_s", 0.15)
+    cfg_kw.setdefault("heartbeat_max_age_s", 5.0)
+    cfg_kw.setdefault("restart_backoff_s", 0.05)
+    return WorkerSupervisor(
+        cmd_fn or stub_worker_cmd,
+        FleetConfig(num_workers=n, state_dir=str(tmp_path / "fleet"), **cfg_kw),
+        overrides={**STUB_OVERRIDES, **(overrides or {})})
+
+
+def make_fleet(tmp_path, n=2, overrides=None, router_cfg=None, **cfg_kw):
+    from deepinteract_tpu_torch.serving.router import FleetRouter, RouterConfig
+
+    sup = make_supervisor(tmp_path, n=n, overrides=overrides, **cfg_kw)
+    router = FleetRouter(sup, port=0, cfg=router_cfg or RouterConfig(
+        proxy_timeout_s=10.0, warm_timeout_s=30.0, drain_timeout_s=10.0))
+    router.start()
+    wait_routable(sup, n)
+    return sup, router
+
+
+def wait_routable(sup, n, timeout=25.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        sup.poll_once()
+        if len(sup.routable_workers()) >= n:
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"fleet never reached {n} routable workers: {sup.stats()}")
+
+
+def http_post(host, port, path="/predict", body=b"{}", headers=None, timeout=10.0):
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def http_get(host, port, path, timeout=10.0):
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
