@@ -140,9 +140,26 @@ Phases, in order; any failure exits non-zero:
      ``tools/check_cli_contract.py``; (e) start-to-warm seconds, routed
      and direct latency per bucket, latency before and during the swap,
      and the card's memory in use with 2 and 4 workers.
+ 12. the training dispatch loop at the flagship width: ``cli.train`` on 20
+     train complexes in two buckets of 10 (runs of 8 and remainders of 2:
+     six dispatches), 4 val and 4 test complexes, with
+     ``--steps_per_dispatch 8 --eval_batches_per_dispatch 4
+     --deterministic``, inline (run A), then with ``--device_prefetch
+     --packed_cache_dir --profile_dir --profile_steps 2
+     --viz_every_n_epochs 1`` and an in-process writer (run B): bitwise
+     equal last/ states (weights, AdamW moments), per-step losses and
+     histories (timings aside), the visited order equal to the loader's
+     run-granular plan, exact (K1, K2, CSR builds) around each run, K1 and
+     K2 at 4 x the steps of dispatches 1-2 in the exported Chrome trace with
+     its ``step#n``, ``device_step`` and ``h2d`` ranges, run A's span log
+     with one ``step`` per dispatch, the viz images, the packs reused by a
+     third run that a ``data.place`` fault plan ends non-zero with
+     ``PlacementError``; each run's epoch wall, data_wait, h2d and device
+     shares, and the pinned bytes at the peak.
 The line before the last is the card's name and power limit; before it, a
-``{"kernels": [...]}`` JSON line, before that phase 11's ``{"fleet":
-{...}}`` summary, before that phase 10's ``{"screening": {...}}`` one,
+``{"kernels": [...]}`` JSON line, before that phase 12's ``{"dispatch":
+{...}}`` summary, before that phase 11's ``{"fleet": {...}}`` summary,
+before that phase 10's ``{"screening": {...}}`` one,
 and before that phase 9's ``{"serving": {...}}`` one. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
 prints no result.
@@ -887,8 +904,12 @@ def _expect_launches(label, counts, encode_pairs, train_steps):
 
 
 def _train_argv(root, ckpt_dir, seed, *extra):
+    """One step per dispatch: a run of the default 8 would pull a batch
+    ahead before its preemption poll, and the fault plan would preempt
+    before epoch 2's first batch instead of its second (phase 12 runs the
+    default)."""
     return ["--dips_root", root, "--num_epochs", str(LIFECYCLE_EPOCHS), "--seed", str(seed),
-            "--log_every", "0", "--ckpt_dir", ckpt_dir, *extra]
+            "--log_every", "0", "--ckpt_dir", ckpt_dir, "--steps_per_dispatch", "1", *extra]
 
 
 def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
@@ -1278,9 +1299,10 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
 # Timing runs (medians) per path: maps of one tile, tiled maps, the DeepLab
 # train step, the tiled train step. Cut as phases joined the script, to keep
 # it inside half its time limit: from 20 / 5 / 5 / 3 to 3 / 2 / 2 / 1 with
-# the serving phase, and to 2 / 1 / 1 / 1 with the fleet phase.
-CONFIG_RUNS = {"predict": 2, "predict_tiled": 1, "train": 1, "train_tiled": 1}
-PHASE6_PREDICT_RUNS = 5  # per complex (20, then 10, before the fleet phase)
+# the serving phase, to 2 / 1 / 1 / 1 with the fleet phase, and to
+# 1 / 1 / 1 / 1 with the dispatch-loop phase.
+CONFIG_RUNS = {"predict": 1, "predict_tiled": 1, "train": 1, "train_tiled": 1}
+PHASE6_PREDICT_RUNS = 3  # per complex (20, then 10, then 5 before the dispatch-loop phase)
 PHASE6_TRAIN_RUNS = 2  # per batch (5, then 3)
 
 
@@ -1546,7 +1568,10 @@ HEARTBEAT_S = 2.0
 
 def _cli_train(root, ckpt_dir, seed, *extra, faults_plan=None, flags=()):
     """Start ``cli.train`` on ``root`` in a process of its own; returns the
-    Popen (text pipes)."""
+    Popen (text pipes). One step per dispatch: the hang is injected at the
+    second batch, after the first step stamped progress; a run of the
+    default 8 pulls the second batch before the first step, and a child
+    that hangs before any progress waits out the start grace."""
     env = {k: v for k, v in os.environ.items() if k != "DI_FAULTS"}
     if faults_plan:
         env["DI_FAULTS"] = faults_plan
@@ -1554,7 +1579,7 @@ def _cli_train(root, ckpt_dir, seed, *extra, faults_plan=None, flags=()):
         [sys.executable, "-m", "deepinteract_tpu_torch.cli.train", "--dips_root", root,
          "--num_epochs", "1", "--seed", str(seed), "--log_every", "0", "--ckpt_dir",
          ckpt_dir, "--save_every_steps", "1", "--deterministic", "--test_csv",
-         ckpt_dir + "_top.csv", *flags, *extra],
+         ckpt_dir + "_top.csv", "--steps_per_dispatch", "1", *flags, *extra],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
@@ -2962,6 +2987,263 @@ def run_fleet_phase(cfg, seed, device, smi, work) -> dict:
     return {"routes": routes, **fleet, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the training dispatch loop and its input path
+# ---------------------------------------------------------------------------
+
+# 20 train complexes in two buckets of 10 (128x128 and 256x192): per bucket
+# a run of 8 and a remainder of 2 at --batch_size 1 --steps_per_dispatch 8,
+# so 2 run dispatches and 4 per-batch ones; distinct sizes name each
+# complex. 4 val complexes of one bucket (one eval dispatch of 4) and 4
+# test complexes of mixed buckets.
+DISPATCH_TRAIN = tuple((70 + 5 * i, 100 - 3 * i) for i in range(10)) + \
+    tuple((200 + 5 * i, 150 + 3 * i) for i in range(10))
+DISPATCH_VAL = ((80, 120), (90, 110), (100, 95), (120, 70))
+DISPATCH_TEST = ((60, 250), (100, 80), (200, 180), (128, 128))
+DISPATCH_K = 8
+DISPATCH_EVAL_K = 4
+DISPATCH_PROFILE_STEPS = 2
+
+
+def write_dispatch_dataset(root, seed) -> None:
+    """The phase's on-disk tree: train, val and test split files over
+    their own complexes."""
+    sizes = DISPATCH_TRAIN + DISPATCH_VAL + DISPATCH_TEST
+    write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
+                           geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+    names = [f"c{i}.npz" for i in range(len(sizes))]
+    n_train, n_val = len(DISPATCH_TRAIN), len(DISPATCH_VAL)
+    for mode, sel in (("train", names[:n_train]), ("val", names[n_train:n_train + n_val]),
+                      ("test", names[n_train + n_val:])):
+        with open(os.path.join(root, f"pairs-postprocessed-{mode}.txt"), "w") as f:
+            f.write("\n".join(sel) + "\n")
+
+
+class _Recorder:
+    """An in-process metric writer: the scalars and images it was given."""
+
+    def __init__(self):
+        self.scalars, self.images = [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def add_image(self, tag, img, step, dataformats="HWC"):
+        self.images.append((tag, tuple(img.shape), step))
+
+
+@contextlib.contextmanager
+def _visited(into: list):
+    """Record each train step's (n1, n2) and loss, in order, by wrapping
+    the loop's train_step (the sizes are read after the run)."""
+    from deepinteract_tpu_torch.training import loop as loop_mod
+
+    real = loop_mod.train_step
+
+    def step(state, batch, *a, **kw):
+        m = real(state, batch, *a, **kw)
+        into.append((batch.graph1.num_nodes, batch.graph2.num_nodes, m["loss"]))
+        return m
+
+    loop_mod.train_step = step
+    try:
+        yield
+    finally:
+        loop_mod.train_step = real
+
+
+def _dispatches(loader) -> list:
+    """Steps per train dispatch of the loader's epoch-0 plan, by the
+    loop's rule: a run of exactly K same-bucket batches is one dispatch,
+    a shorter run one dispatch per batch."""
+    runs = []
+    for bucket, _ in loader.epoch_plan(0):
+        if runs and runs[-1][0] == bucket and runs[-1][1] < DISPATCH_K:
+            runs[-1][1] += 1
+        else:
+            runs.append([bucket, 1])
+    return [d for _, n in runs for d in ([n] if n == DISPATCH_K else [1] * n)]
+
+
+def _pack_stamps(pack_root) -> dict:
+    out = {}
+    for split in ("train", "val", "test"):
+        st = os.stat(os.path.join(pack_root, split, "pack_index.json"))
+        out[split] = (st.st_ino, st.st_mtime_ns)
+    return out
+
+
+def _trace_counts(profile_dir) -> dict:
+    """K1 kernels, K2 kernels (its second pass, one per launch) and the
+    device_step and h2d ranges of the exported Chrome trace."""
+    with open(os.path.join(profile_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    names = [e.get("name", "") for e in events]
+    return {"k1": sum("edge_attention_fwd" in n for n in kernels),
+            "k2": sum("edge_attention_bwd_dst" in n for n in kernels),
+            "kernels": len(kernels), "device_step": names.count("device_step"),
+            "h2d": names.count("h2d"),
+            "steps": sorted({n for n in names if n.startswith("step#")})}
+
+
+def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
+    """Phase 12: ``cli.train`` at the flagship width with K train steps and
+    K eval batches per dispatch, inline (run A) and with the placement
+    thread, packs, a profile window, viz and an in-process writer (run B),
+    both under ``--deterministic``: bitwise equal weights, AdamW moments and
+    per-step losses, the visited order of the loader's run-granular plan
+    (F7), exact launch counts, the trace's kernels and ranges, the span
+    log's dispatches, pack reuse, and a ``data.place`` fault surfacing as
+    ``PlacementError``. ``flags`` go to every command (a CPU rehearsal's
+    small model and ``--device cpu``)."""
+    from deepinteract_tpu_torch.obs import metrics as obs_metrics
+    from deepinteract_tpu_torch.obs import spans as obs_spans
+
+    pinned_gauge = obs_metrics.get_registry().gauge("di_data_pinned_peak_bytes")
+
+    log("== phase 12: training dispatch loop and input path (cli.train, flagship width, "
+        f"--steps_per_dispatch {DISPATCH_K}, --eval_batches_per_dispatch {DISPATCH_EVAL_K})")
+    t_phase = time.perf_counter()
+    obs_spans.close()  # the runs open their own span logs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as work:
+        root, packs, prof = (os.path.join(work, d) for d in ("data", "packs", "profile"))
+        write_dispatch_dataset(root, seed)
+        n_train, n_eval = len(DISPATCH_TRAIN), len(DISPATCH_VAL) + len(DISPATCH_TEST)
+
+        def argv(ckpt, *extra):
+            return ["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
+                    "--log_every", "0", "--deterministic", "--steps_per_dispatch",
+                    str(DISPATCH_K), "--eval_batches_per_dispatch", str(DISPATCH_EVAL_K),
+                    "--ckpt_dir", os.path.join(work, ckpt), *extra, *flags]
+
+        prefetch_flags = ("--device_prefetch", "--packed_cache_dir", packs, "--profile_dir",
+                          prof, "--profile_steps", str(DISPATCH_PROFILE_STEPS),
+                          "--viz_every_n_epochs", "1")
+        runs, visited, walls = {}, {}, {}
+        writer = _Recorder()
+        real_writer = train_cli.make_metric_writer
+        for name, extra in (("A", ()), ("B", prefetch_flags)):
+            visited[name] = []
+            train_cli.make_metric_writer = (lambda args: writer) if name == "B" \
+                else real_writer
+            pinned_gauge.set(0)
+            try:
+                with _visited(visited[name]):
+                    t0 = time.perf_counter()
+                    runs[name] = _counted(lambda: train_cli.run(train_cli.parse_args(
+                        argv(name, *extra))))
+                    walls[name] = time.perf_counter() - t0
+            finally:
+                train_cli.make_metric_writer = real_writer
+            runs[name] += (int(pinned_gauge.value()),)
+        (hist_a, test_a), counts_a, _ = runs["A"]
+        (hist_b, test_b), counts_b, pinned_peak = runs["B"]
+
+        # A third run B on the same packs under a data.place fault plan: it
+        # must reuse them and end non-zero with PlacementError. It starts
+        # now and is waited for after the checks below.
+        stamps = _pack_stamps(packs)
+        env = {k: v for k, v in os.environ.items() if k != "DI_FAULTS"}
+        env["DI_FAULTS"] = "data.place=1"
+        t_fault = time.perf_counter()
+        fault = subprocess.Popen([sys.executable, "-m", "deepinteract_tpu_torch.cli.train",
+                                  *argv("C", *prefetch_flags)], env=env, text=True,
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            # The same weights, AdamW moments and schedule, bitwise.
+            finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
+                None, which="last") for n in ("A", "B")}
+            state_diff = _tree_diff(finals["A"], finals["B"])
+            check(state_diff == 0.0, f"inline and --device_prefetch runs differ: last/ state max "
+                  f"|diff| {state_diff:.3g}")
+            steps = {n: [(int(a[0]), int(b[0]), loss) for a, b, loss in v]
+                     for n, v in visited.items()}
+            check([s[2] for s in steps["A"]] == [s[2] for s in steps["B"]],
+                  "inline and --device_prefetch runs differ in their per-step losses")
+            for key in hist_a[0]:
+                if key.endswith("seconds") or key.startswith("tele_"):  # timings
+                    continue
+                check(_same_metric(hist_a[0][key], hist_b[0][key], 0.0),
+                      f"history {key}: inline {hist_a[0][key]} vs prefetch {hist_b[0][key]}")
+            check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
+                  f"test metrics differ: {test_a} vs {test_b}")
+            # F7 on the card: the visited order is the run-granular plan.
+            plan_loader = BucketedLoader(DIPSDataset(root, "train"), shuffle=True,
+                                         drop_remainder=True, seed=seed, dispatch_run=DISPATCH_K)
+            lengths = plan_loader.dataset.lengths()
+            plan_sizes = [tuple(lengths[i]) for _, chunk in plan_loader.epoch_plan(0)
+                          for i in chunk]
+            for n in ("A", "B"):
+                check([s[:2] for s in steps[n]] == plan_sizes,
+                      f"run {n}: visited {[s[:2] for s in steps[n]]}, plan {plan_sizes}")
+            dispatches = _dispatches(plan_loader)
+            check(sorted(dispatches) == [1, 1, 1, 1, DISPATCH_K, DISPATCH_K],
+                  f"dispatches {dispatches}")
+            # Exact launch counts: 4 K1 per encode pair (train steps, each eval
+            # complex, and run B's viz forward), 4 K2 per train step.
+            for n, counts, extra_evals in (("A", counts_a, 0), ("B", counts_b, 1)):
+                _expect_launches(f"run {n}", counts, n_train + n_eval + extra_evals, n_train)
+            # The profile window: dispatches [1, 1 + profile_steps).
+            window_steps = sum(dispatches[1:1 + DISPATCH_PROFILE_STEPS])
+            trace = _trace_counts(prof)
+            want = LAUNCHES_PER_ENCODE_PAIR * window_steps
+            check((trace["k1"], trace["k2"]) == (want, want),
+                  f"trace K1/K2 kernels {trace['k1']}/{trace['k2']}, expected {want} each "
+                  f"({window_steps} steps in dispatches 1..{DISPATCH_PROFILE_STEPS})")
+            check(trace["device_step"] >= DISPATCH_PROFILE_STEPS and trace["h2d"] >= 1,
+                  f"trace ranges: device_step {trace['device_step']}, h2d {trace['h2d']}")
+            check(trace["steps"] == [f"step#{i}" for i in range(1, 1 + DISPATCH_PROFILE_STEPS)],
+                  f"trace step ranges {trace['steps']}")
+            # The span log: 6 train dispatches with their leaves.
+            events = obs_spans.read_events(os.path.join(work, "A", "obs", "events.jsonl"))
+            counted = {k: sum(e["name"] == k for e in events)
+                       for k in ("step", "device_step", "h2d", "data_wait")}
+            check(counted["step"] == counted["device_step"] == counted["h2d"] == len(dispatches)
+                  and counted["data_wait"] >= 1,
+                  f"span log of run A: {counted}, expected {len(dispatches)} dispatches")
+            check([e["n"] for e in events if e["name"] == "step"] == dispatches,
+                  "span log step sizes differ from the plan's dispatches")
+            # Viz and scalars through the in-process writer.
+            check([t for t, *_ in writer.images] == ["val_predicted_contact_probs",
+                                                     "val_true_contacts"]
+                  and writer.images[0][1] == (*DISPATCH_VAL[0], 1),
+                  f"viz images {writer.images}")
+            check(any(t == "val_ce" for t, *_ in writer.scalars), "no val_ce scalar written")
+            fault_out, _ = fault.communicate(timeout=600)
+        finally:
+            if fault.poll() is None:  # a failed check above: stop it
+                fault.kill()
+                fault.communicate()
+        fault_s = time.perf_counter() - t_fault
+        check(fault.returncode != 0 and "PlacementError" in fault_out,
+              f"data.place run: rc {fault.returncode}, {fault_out[-800:]}")
+        check(_pack_stamps(packs) == stamps, "the third run B rebuilt a pack")
+    tele = {n: {k: h[0][k] for k in ("tele_data_wait_frac", "tele_data_wait_s", "tele_h2d_s",
+                                     "tele_h2d_frac", "tele_device_frac", "tele_device_s",
+                                     "tele_eval_s", "train_seconds", "epoch_seconds")}
+            for n, h in (("inline", hist_a), ("prefetch", hist_b))}
+    seconds = time.perf_counter() - t_phase
+    for n, label in (("A", "inline"), ("B", "prefetch")):
+        t = tele[label]
+        log(f"  run {n} ({label}): cli.train wall {walls[n]:.3f} s, epoch "
+            f"{t['epoch_seconds']:.3f} s (train {t['train_seconds']:.3f} s), data_wait "
+            f"{t['tele_data_wait_s']:.4f} s ({t['tele_data_wait_frac']:.4%}), h2d "
+            f"{t['tele_h2d_s']:.4f} s, device {t['tele_device_frac']:.2%}; launches "
+            f"{runs[n][1]}")
+    log(f"  prefetch: pinned bytes at the peak {pinned_peak} ({pinned_peak / 2 ** 20:.2f} "
+        f"MiB); last/ state bitwise equal; {len(dispatches)} dispatches {dispatches}; trace "
+        f"window {window_steps} steps, K1 {trace['k1']} K2 {trace['k2']} of "
+        f"{trace['kernels']} kernels; packs reused; data.place run exit "
+        f"{fault.returncode} with PlacementError ({fault_s:.1f} s, beside the checks); "
+        f"card {smi}")
+    log(f"  phase 12: {seconds:.1f} s")
+    return {"launches": {"inline": counts_a, "prefetch": counts_b}, "dispatches": dispatches,
+            "walls_s": walls, "telemetry": tele, "pinned_peak_bytes": pinned_peak,
+            "trace": trace, "window_steps": window_steps, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3082,6 +3364,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work:
         screening = run_screening(cfg, args.seed, device, smi, work)
         fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
+    dispatch = run_dispatch_loop(args.seed, device, smi)
     log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                   if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
@@ -3108,7 +3391,9 @@ def main(argv=None) -> int:
                                          screening["per_encode_capture"][2],
                                      "route_screen_per_encode_capture": ENCODE_COUNTS[2],
                                      "route_assembly": fleet["routes"]["assembly"]["launches"][2],
-                                     "fleet_worker_per_capture": FLEET_COUNTS[2]},
+                                     "fleet_worker_per_capture": FLEET_COUNTS[2],
+                                     **{f"dispatch_{mode}": c[2]
+                                        for mode, c in dispatch["launches"].items()}},
               "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
                              ("tiled_two", "deeplab"))},
                          "importer": {k: v for k, v in importer.items() if k != "launches"},
@@ -3155,7 +3440,11 @@ def main(argv=None) -> int:
                              "route_screen_per_encode_capture":
                                  fleet["routes"]["route_screen_per_encode_capture"],
                              "route_assembly": fleet["routes"]["route_assembly"],
-                             "fleet_worker_per_capture": fleet["fleet_worker_per_capture"]},
+                             "fleet_worker_per_capture": fleet["fleet_worker_per_capture"],
+                             # Phase 12: around the inline and the prefetching run.
+                             **{f"dispatch_{mode}": c[0]
+                                for mode, c in dispatch["launches"].items()}},
+        "dispatch_profile_window_k1": dispatch["trace"]["k1"],
         "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
         "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
         "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
@@ -3184,7 +3473,10 @@ def main(argv=None) -> int:
                              "screen_encode_per_capture": screening["per_encode_capture"][1],
                              "route_screen_per_encode_capture": ENCODE_COUNTS[1],
                              "route_assembly": fleet["routes"]["assembly"]["launches"][1],
-                             "fleet_worker_per_capture": FLEET_COUNTS[1]},
+                             "fleet_worker_per_capture": FLEET_COUNTS[1],
+                             **{f"dispatch_{mode}": c[1]
+                                for mode, c in dispatch["launches"].items()}},
+        "dispatch_profile_window_k2": dispatch["trace"]["k2"],
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
         "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -3203,6 +3495,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"screening": screening}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"dispatch": dispatch}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -77,6 +77,10 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--split_ver", type=str, default=None)
     g.add_argument("--batch_size", type=int, default=1)
     add_bucket_args(g)
+    g.add_argument("--packed_cache_dir", type=str, default=None,
+                   help="directory for pre-padded per-bucket memmap packs of each split "
+                        "(built on the first run, and by either package); the per-epoch host "
+                        "path is then an mmap + stack instead of npz decompress + pad")
 
 
 def add_bucket_args(g) -> None:
@@ -96,6 +100,10 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--grad_clip_norm", type=float, default=0.5)
     g.add_argument("--num_epochs", type=int, default=50)
     g.add_argument("--accumulate_grad_batches", type=int, default=1)
+    g.add_argument("--steps_per_dispatch", type=int, default=8,
+                   help="train steps per dispatch: a run of this many same-shape batches is "
+                        "placed once and stepped back to back, and the loader shuffles whole "
+                        "runs (1 = a dispatch per step)")
     g.add_argument("--patience", type=int, default=5)
     g.add_argument("--min_delta", type=float, default=5e-6)
     g.add_argument("--weight_classes", action="store_true",
@@ -104,6 +112,12 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--log_every", type=int, default=100)
     g.add_argument("--eval_batch_size", type=int, default=1,
                    help="complexes per val/test batch (metrics stay per complex)")
+    g.add_argument("--eval_batches_per_dispatch", type=int, default=8,
+                   help="eval batches per dispatch: a same-shape run's outputs reach the host "
+                        "in one copy (1 = batch by batch)")
+    g.add_argument("--viz_every_n_epochs", type=int, default=0,
+                   help="log predicted and true contact-map images to the metric writer "
+                        "every N epochs (0 = off)")
     g.add_argument("--sync_checkpoint", action="store_true",
                    help="save the epoch-boundary checkpoint synchronously instead of "
                         "writing it on a worker thread while the next epoch trains")
@@ -148,6 +162,13 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
                    help="write <ckpt_dir>/obs/heartbeat_p0.json (process, phase, last "
                         "progress step and time) every N seconds; 0 disables")
 
+    g = p.add_argument_group("input pipeline")
+    g.add_argument("--device_prefetch", action="store_true",
+                   help="place each train run on the placement thread while the previous "
+                        "dispatch runs: on a GPU the run's tensors go to pinned memory and "
+                        "then to the card by non-blocking copies on a side CUDA stream, at "
+                        "most the loader's prefetch depth (2) of runs ahead")
+
     g = p.add_argument_group(
         "supervision",
         "run training as a supervised child (training/supervisor.py): a crash restarts "
@@ -173,6 +194,26 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
                         "supervisor stops and exits nonzero")
     g.add_argument("--train_circuit_window_s", type=float, default=3600.0,
                    help="sliding window of --train_circuit_max_restarts")
+
+
+def add_logging_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("logging")
+    g.add_argument("--experiment_name", type=str, default=None)
+    g.add_argument("--tb_log_dir", type=str, default=None,
+                   help="TensorBoard scalar log directory (tensorboardX)")
+    g.add_argument("--use_wandb", action="store_true",
+                   help="log to Weights & Biases; without wandb installed it is ignored "
+                        "with a warning")
+    g.add_argument("--wandb_project", type=str, default="DeepInteract-TPU")
+    g.add_argument("--wandb_entity", type=str, default=None, help="W&B entity")
+    g.add_argument("--offline", action="store_true", help="wandb offline mode")
+    g.add_argument("--profile_dir", type=str, default=None,
+                   help="write a phase-labeled torch.profiler Chrome trace of --profile_steps "
+                        "train dispatches (from the second one) into this directory")
+    g.add_argument("--profile_steps", type=int, default=3,
+                   help="train dispatches captured by --profile_dir")
+    g.add_argument("--no_span_log", action="store_true",
+                   help="do not write the phase-span JSONL log (<ckpt_dir>/obs/events.jsonl)")
 
 
 def add_serving_args(p: argparse.ArgumentParser) -> None:
@@ -502,4 +543,44 @@ def loop_config_from_args(args: argparse.Namespace) -> LoopConfig:
                       async_checkpoint=not args.sync_checkpoint,
                       nonfinite_guard=not args.no_nonfinite_guard,
                       max_bad_steps=args.max_bad_steps,
-                      heartbeat_seconds=args.heartbeat_seconds)
+                      heartbeat_seconds=args.heartbeat_seconds,
+                      viz_every_n_epochs=args.viz_every_n_epochs,
+                      steps_per_dispatch=args.steps_per_dispatch,
+                      eval_batches_per_dispatch=args.eval_batches_per_dispatch,
+                      device_prefetch=args.device_prefetch,
+                      span_log=not getattr(args, "no_span_log", False),
+                      profile_dir=getattr(args, "profile_dir", None),
+                      profile_steps=getattr(args, "profile_steps", 3))
+
+
+def default_experiment_name(args: argparse.Namespace) -> str:
+    """``--experiment_name``, else the reference's run name:
+    LitGINI-b{batch}-gl{gnn_layers}-n{hidden}-e{hidden}-il{interact_layers}-i{interact_hidden}."""
+    if getattr(args, "experiment_name", None):
+        return args.experiment_name
+    return (f"LitGINI-b{args.batch_size}-gl{args.num_gnn_layers}"
+            f"-n{args.num_gnn_hidden_channels}-e{args.num_gnn_hidden_channels}"
+            f"-il{args.num_interact_layers}-i{args.num_interact_hidden_channels}")
+
+
+def make_metric_writer(args: argparse.Namespace):
+    """The metric writer the logging flags ask for: a TensorBoard writer
+    (``--tb_log_dir``), a W&B writer (``--use_wandb``, None without
+    wandb), both behind a fan-out, or None."""
+    from deepinteract_tpu_torch.training.wandb_logger import FanoutWriter, make_wandb_writer
+
+    writers = []
+    if getattr(args, "tb_log_dir", None):
+        from tensorboardX import SummaryWriter
+
+        writers.append(SummaryWriter(args.tb_log_dir))
+    if getattr(args, "use_wandb", False):
+        writers.append(make_wandb_writer(
+            args.wandb_project, run_name=default_experiment_name(args),
+            config={k: v for k, v in vars(args).items()
+                    if isinstance(v, (int, float, str, bool, type(None)))},
+            offline=args.offline))
+    writers = [w for w in writers if w is not None]
+    if not writers:
+        return None
+    return writers[0] if len(writers) == 1 else FanoutWriter(writers)

@@ -12,9 +12,20 @@ cpu`` it refuses.
         [--fine_tune --ckpt_name SRC] [--stochastic_weight_avg] [--find_lr] \\
         [--max_hours H] [--data_skip_budget S] [--test_csv PATH] [--remat \\
         [--remat_policy full|convs]] [--heartbeat_seconds S] [--deterministic] \\
+        [--steps_per_dispatch K] [--eval_batches_per_dispatch K] [--device_prefetch] \\
+        [--packed_cache_dir DIR] [--profile_dir DIR [--profile_steps N]] [--no_span_log] \\
+        [--viz_every_n_epochs N] [--tb_log_dir DIR] [--use_wandb [--offline] ...] \\
         [--supervise [--hang_timeout_s T] ...] [--device cpu]
 
-Checkpoints go to ``--ckpt_dir`` (``best/``, ``last/``, ``mid/``). A
+The train loader shuffles runs of ``--steps_per_dispatch`` same-bucket
+batches (the JAX CLI's epoch order), and each full run is one dispatch of
+the trainer. ``--packed_cache_dir`` packs each split once (the JAX
+package's pack signatures, so either package reuses the other's pack) and
+reads batches from the packs. ``--device_prefetch`` places each run on the
+placement thread (pinned memory, a side CUDA stream). Checkpoints go to
+``--ckpt_dir`` (``best/``, ``last/``, ``mid/``), the phase spans to
+``<ckpt_dir>/obs/events.jsonl`` (unless ``--no_span_log``), epoch scalars
+to ``--tb_log_dir`` and W&B (``--use_wandb``). A
 preempted run (SIGTERM, SIGINT) flushes its newest checkpoint, prints
 "training preempted (...)" and exits 0; rerun it with ``--resume``. The
 last line of a finished run's output is the test split's metrics as a
@@ -37,11 +48,13 @@ from itertools import islice
 
 import torch
 
-from deepinteract_tpu_torch.cli.args import (add_data_args, add_training_args, build_parser,
-                                             loop_config_from_args, model_config_from_args,
-                                             optim_config_from_args)
+from deepinteract_tpu_torch.cli.args import (add_data_args, add_logging_args,
+                                             add_training_args, build_parser,
+                                             loop_config_from_args, make_metric_writer,
+                                             model_config_from_args, optim_config_from_args)
 from deepinteract_tpu_torch.data.datasets import PICPDataModule
-from deepinteract_tpu_torch.data.loader import BucketedLoader
+from deepinteract_tpu_torch.data.loader import BucketedLoader, make_bucket_fn
+from deepinteract_tpu_torch.data.packed import PackedDataset, pack_dataset
 from deepinteract_tpu_torch.device import resolve_device
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.models.policy import set_backend_precision
@@ -55,6 +68,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser(__doc__)
     add_data_args(parser)
     add_training_args(parser)
+    add_logging_args(parser)
     parser.add_argument("--test_csv", type=str, default=None,
                         help="write the test split's per-target top-k metrics here")
     args = parser.parse_args(argv)
@@ -90,13 +104,17 @@ def _run(args: argparse.Namespace):
                         test_with_casp_capri=args.test_with_casp_capri,
                         percent_to_use=args.percent_to_use, input_indep=args.input_indep,
                         split_ver=args.split_ver, seed=args.seed)
-    train_loader = BucketedLoader(dm.train, batch_size=args.batch_size, shuffle=True,
+    train_ds, val_ds, test_ds = dm.train, dm.val, dm.test
+    if args.packed_cache_dir:
+        train_ds, val_ds, test_ds = packed_splits(args, train_ds, val_ds, test_ds)
+    train_loader = BucketedLoader(train_ds, batch_size=args.batch_size, shuffle=True,
                                   drop_remainder=True, seed=args.seed,
                                   pad_to_max_bucket=args.pad_to_max_bucket,
                                   diagonal_buckets=args.diagonal_buckets,
-                                  skip_budget=args.data_skip_budget)
-    val_loader = BucketedLoader(dm.val, batch_size=args.eval_batch_size)
-    test_loader = BucketedLoader(dm.test, batch_size=args.eval_batch_size)
+                                  skip_budget=args.data_skip_budget,
+                                  dispatch_run=max(1, args.steps_per_dispatch))
+    val_loader = BucketedLoader(val_ds, batch_size=args.eval_batch_size)
+    test_loader = BucketedLoader(test_ds, batch_size=args.eval_batch_size)
     # The cosine-restart schedule counts steps of this loader's epochs.
     optim_cfg = dataclasses.replace(optim_config_from_args(args),
                                     steps_per_epoch=max(train_loader.num_batches(), 1))
@@ -110,12 +128,40 @@ def _run(args: argparse.Namespace):
                                seed=args.seed, weight_classes=args.weight_classes)
         print(f"lr_find suggestion: {suggested:.2e} (was {optim_cfg.lr:.2e})")
         optim_cfg = dataclasses.replace(optim_cfg, lr=suggested)
-    trainer = Trainer(model, loop_config_from_args(args), optim_cfg)
+    trainer = Trainer(model, loop_config_from_args(args), optim_cfg,
+                      metric_writer=make_metric_writer(args))
     state = trainer.init_state(fine_tune_from=args.ckpt_name if args.fine_tune else None)
     state, history = trainer.fit(state, train_loader, val_data=val_loader, resume=args.resume)
+    writer = trainer.metric_writer
+    if writer is not None and args.ckpt_dir and hasattr(writer, "log_checkpoint_artifact"):
+        try:
+            writer.log_checkpoint_artifact(args.ckpt_dir)
+        except Exception as exc:  # an artifact upload must not fail the run
+            print(f"checkpoint artifact upload failed: {exc}")
     test_metrics = trainer.evaluate(state, test_loader, stage="test",
                                     targets=test_loader.targets(), csv_path=args.test_csv)
     return history, test_metrics
+
+
+def packed_splits(args: argparse.Namespace, train_ds, val_ds, test_ds):
+    """The three splits as pre-padded packs under ``--packed_cache_dir``
+    (``train/``, ``val/``, ``test/``), each written on the first run and
+    reused while its signature, item count and lengths match. The
+    signatures are the JAX CLI's, so a pack that either package wrote is
+    the other's too."""
+    train_sig = (f"pad_max={args.pad_to_max_bucket},diag={args.diagonal_buckets},"
+                 f"indep={args.input_indep}")
+    eval_sig = f"eval,indep={args.input_indep}"
+    specs = (("train", train_ds, make_bucket_fn(args.pad_to_max_bucket,
+                                                args.diagonal_buckets), train_sig),
+             ("val", val_ds, make_bucket_fn(), eval_sig),
+             ("test", test_ds, make_bucket_fn(), eval_sig))
+    packs = []
+    for split, ds, bucket_fn, sig in specs:
+        pack_dir = os.path.join(args.packed_cache_dir, split)
+        pack_dataset(ds, pack_dir, bucket_fn, signature=sig)
+        packs.append(PackedDataset(pack_dir))
+    return packs
 
 
 def _supervise_main(args: argparse.Namespace, argv) -> int:

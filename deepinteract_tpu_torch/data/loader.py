@@ -5,9 +5,15 @@ Complexes are grouped by their (bucket1, bucket2) padded chain lengths
 (``pick_bucket`` over ``constants.CHAIN_LENGTH_BUCKETS``) and only
 same-bucket complexes batch together, so a batch stacks without ragged
 edges. The epoch plan (bucket order, seeded shuffle, ``drop_remainder``)
-is the JAX loader's with per-step dispatch (``dispatch_run=1``), batch
-for batch. Batches are CPU tensors; the trainer
-moves them to its device.
+is the JAX loader's, batch for batch: with ``dispatch_run`` K > 1 each
+bucket's batches are cut into runs of up to K and whole runs are
+shuffled, so the trainer's K-step dispatches (``training/loop.py``) see
+same-shape runs; ``cli.train`` passes ``max(1, --steps_per_dispatch)`` as
+the JAX CLI does. A :class:`~deepinteract_tpu_torch.data.packed.PackedDataset`
+is planned by its pack-time buckets and read by mmap + stack. Batches
+are CPU tensors, assembled ``prefetch`` ahead of the consumer on a
+daemon thread (0: inline); the trainer's placement stage
+(``data/pipeline.py``) moves them to its device.
 
 Resume cursor: ``iter_epoch(epoch, start_batch, skips_used)`` starts an
 epoch at a consumed-batch position without loading the batches before it,
@@ -19,7 +25,9 @@ trainer's ledger of those drops. Single process only.
 from __future__ import annotations
 
 import logging
+import queue
 import random
+import threading
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
@@ -54,12 +62,18 @@ class BucketedLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_remainder: bool = False, seed: int = 42,
                  pad_to_max_bucket: bool = False, diagonal_buckets: bool = False,
-                 skip_budget: int = 0):
+                 skip_budget: int = 0, prefetch: int = 2, dispatch_run: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
         self.seed = seed
+        # Batches assembled ahead of the consumer on a daemon thread (npz
+        # load, pad and stack overlap the device's work); 0 loads inline.
+        self.prefetch = prefetch
+        # Shuffle granularity: runs of up to this many consecutive
+        # same-bucket batches stay together and whole runs are shuffled.
+        self.dispatch_run = max(1, dispatch_run)
         # Batches per epoch that may fail to load and be dropped (the whole
         # batch: a smaller one would change shapes); over budget the load
         # error is raised. 0 fails fast.
@@ -68,9 +82,13 @@ class BucketedLoader:
         # iterated: the trainer's resume ledger.
         self._skips_at: Dict[int, int] = {}
         bucket_fn = make_bucket_fn(pad_to_max_bucket, diagonal_buckets)
+        # A pack fixed each item's bucket when it was written: planning by
+        # the stored buckets keeps plan and pack consistent.
+        bucket_of = getattr(dataset, "bucket_of", None)
         buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
         for idx, (n1, n2) in enumerate(dataset.lengths()):
-            buckets[bucket_fn(n1, n2)].append(idx)
+            key = tuple(bucket_of(idx)) if bucket_of is not None else bucket_fn(n1, n2)
+            buckets[key].append(idx)
         self._buckets = dict(buckets)
 
     def num_batches(self) -> int:
@@ -81,8 +99,9 @@ class BucketedLoader:
 
     def epoch_plan(self, epoch: int) -> List[Tuple[Tuple[int, int], List[int]]]:
         """[(bucket, item indices)] in this epoch's batch order: buckets in
-        sorted order, items shuffled within each bucket and the batches
-        interleaved, both from ``random.Random(seed + epoch)``."""
+        sorted order, items shuffled within each bucket, then the batches
+        (or, with ``dispatch_run`` > 1, runs of up to that many same-bucket
+        batches) shuffled, all from ``random.Random(seed + epoch)``."""
         plan = []
         rng = random.Random(self.seed + epoch) if self.shuffle else None
         for bucket, indices in sorted(self._buckets.items()):
@@ -94,7 +113,17 @@ class BucketedLoader:
                 if len(chunk) < self.batch_size and self.drop_remainder:
                     continue
                 plan.append((bucket, chunk))
-        if rng:
+        if rng and self.dispatch_run > 1:
+            runs, i = [], 0
+            while i < len(plan):
+                j = i
+                while j < len(plan) and plan[j][0] == plan[i][0] and j - i < self.dispatch_run:
+                    j += 1
+                runs.append(plan[i:j])
+                i = j
+            rng.shuffle(runs)
+            plan = [entry for run in runs for entry in run]
+        elif rng:
             rng.shuffle(plan)
         return plan
 
@@ -107,6 +136,9 @@ class BucketedLoader:
 
     def _load(self, bucket: Tuple[int, int], chunk: List[int]) -> PairedComplex:
         faults.maybe_raise("loader.batch", lambda: ValueError("injected corrupt complex"))
+        padded_batch = getattr(self.dataset, "padded_batch", None)
+        if padded_batch is not None:
+            return padded_batch(chunk, bucket)
         b1, b2 = bucket
         raws = [self.dataset[idx] for idx in chunk]
         return stack_complexes([
@@ -120,7 +152,14 @@ class BucketedLoader:
         ``skips_used`` of the budget already spent before it: the first
         ``start_batch + skips_used`` plan entries were paid before a
         checkpoint and are passed over unloaded (the plan is fixed by seed
-        and epoch)."""
+        and epoch). Read ``prefetch`` ahead on a daemon thread."""
+        source = self._produce(epoch, start_batch, skips_used)
+        if self.prefetch <= 0:
+            return source
+        return _prefetched(source, self.prefetch)
+
+    def _produce(self, epoch: int, start_batch: int,
+                 skips_used: int) -> Iterator[PairedComplex]:
         skips_left = self.skip_budget - max(0, skips_used)
         paid = max(0, start_batch) + max(0, skips_used)
         produced, cum_skips = max(0, start_batch), max(0, skips_used)
@@ -152,3 +191,44 @@ class BucketedLoader:
     def __iter__(self) -> Iterator[PairedComplex]:
         return self.iter_epoch(0)
 
+
+def _prefetched(source: Iterator, depth: int) -> Iterator:
+    """Run ``source`` on a daemon thread with up to ``depth`` items ready.
+    Its exceptions re-raise on the consumer's side. A consumer that
+    abandons the iterator (break, an exception, garbage collection) sets
+    the stop flag the worker polls, so the thread ends instead of blocking
+    on a full queue."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put_guarded(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in source:
+                if not put_guarded(item):
+                    return
+        except BaseException as exc:  # noqa: BLE001 - re-raised on the consumer's side
+            put_guarded((done, exc))
+            return
+        put_guarded((done, None))
+
+    threading.Thread(target=worker, daemon=True, name="di-loader").start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, tuple) and len(item) == 2 and item[0] is done:
+                if item[1] is not None:
+                    raise item[1]
+                return
+            yield item
+    finally:
+        stop.set()

@@ -1,7 +1,7 @@
-"""Nested phase spans -> JSONL event log.
+"""Nested phase spans -> JSONL event log (+ optional profiler annotations).
 
-Port of ``deepinteract_tpu/obs/spans.py`` (stdlib only), without its
-``jax.profiler`` annotations.
+Port of ``deepinteract_tpu/obs/spans.py`` (stdlib only; ``torch`` is
+imported on the annotation path alone).
 
 A span marks one timed phase of work on one thread: ``with span("epoch",
 epoch=3): ...``. Spans nest per thread, so the training loop produces
@@ -17,6 +17,11 @@ Design constraints, in order:
 * **Free when unconfigured.** Without a sink, a span is two
   ``perf_counter`` calls and a list push/pop — safe to leave in hot host
   loops permanently. Nothing here ever touches the device.
+* **Profiler labeling on demand.** With annotations enabled
+  (:func:`set_profiler_annotations`), each span also opens a
+  ``torch.profiler.record_function`` of its name (``step#<n>`` when the
+  span has a ``step_num`` attribute), so a ``--profile_dir`` capture comes
+  out phase-labeled.
 * **Heartbeat-readable.** The most recently entered span path is kept in
   a process global (:func:`latest_path`) so the heartbeat thread can
   report *where* a run currently is without cross-thread locals.
@@ -24,6 +29,7 @@ Design constraints, in order:
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -39,6 +45,7 @@ _sink_truncated = False
 _last_flush = 0.0
 _stacks: Dict[int, List[str]] = {}  # thread id -> active span names
 _latest_path = ""
+_annotate = False
 
 # Keys every event carries; span attrs may not shadow them.
 _RESERVED = ("name", "path", "ts", "dur_s")
@@ -94,6 +101,29 @@ def sink_path() -> Optional[str]:
     return _sink_path
 
 
+def set_profiler_annotations(enabled: bool) -> None:
+    """Mirror spans into ``torch.profiler.record_function`` ranges while a
+    profile window is open. Off by default: a range costs a little even
+    outside a capture."""
+    global _annotate
+    _annotate = bool(enabled)
+
+
+def annotations_enabled() -> bool:
+    return _annotate
+
+
+def annotation(name: str):
+    """A profiler range of ``name`` while annotations are enabled (for
+    work timed elsewhere, such as the placement thread's copies), else a
+    no-op context."""
+    if not _annotate:
+        return contextlib.nullcontext()
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
 def current_path() -> str:
     """This thread's active span path (``epoch/step/device_step``)."""
     stack = _stacks.get(threading.get_ident())
@@ -145,13 +175,14 @@ class Span:
     """Context manager for one timed phase; ``dur_s`` is readable after
     exit so callers can accumulate per-phase totals without re-timing."""
 
-    __slots__ = ("name", "attrs", "path", "dur_s", "_t0", "_ts", "_closed")
+    __slots__ = ("name", "attrs", "path", "dur_s", "_t0", "_ts", "_ann", "_closed")
 
     def __init__(self, name: str, **attrs):
         self.name = str(name)
         self.attrs = attrs
         self.path = ""
         self.dur_s = 0.0
+        self._ann = None
         self._closed = False
 
     def __enter__(self) -> "Span":
@@ -160,6 +191,8 @@ class Span:
         stack.append(self.name)
         self.path = "/".join(stack)
         _latest_path = self.path
+        if _annotate:
+            self._ann = _enter_annotation(self.name, self.attrs)
         self._ts = time.time()
         self._t0 = time.perf_counter()
         return self
@@ -172,6 +205,10 @@ class Span:
             return
         self._closed = True
         self.dur_s = time.perf_counter() - self._t0
+        if self._ann is not None:
+            with contextlib.suppress(Exception):
+                self._ann.__exit__(exc_type, exc, tb)
+            self._ann = None
         tid = threading.get_ident()
         stack = _stacks.get(tid)
         if stack and stack[-1] == self.name:
@@ -220,3 +257,16 @@ def read_events(path: str) -> List[Dict[str, Any]]:
                     f"{path}:{lineno}: span event missing keys {missing}")
             events.append(event)
     return events
+
+
+def _enter_annotation(name: str, attrs: Dict[str, Any]):
+    """An entered ``torch.profiler.record_function`` (``name#step_num``
+    for a step span), or None when annotations are off."""
+    if not _annotate:
+        return None
+    from torch.profiler import record_function
+
+    label = f"{name}#{int(attrs['step_num'])}" if "step_num" in attrs else name
+    ann = record_function(label)
+    ann.__enter__()
+    return ann

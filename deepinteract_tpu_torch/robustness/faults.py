@@ -24,6 +24,11 @@ Sites of the port:
 * ``training.hang``      freezes the step loop forever at that train batch
   while the heartbeat thread keeps beating: a wedged step, which only the
   training supervisor's watchdog (``training/supervisor.py``) ends
+* ``data.place``         raises ``PlacementError`` while a train run is
+  placed on the device (``data/pipeline.py``), inline or on the placement
+  thread
+* ``data.place_hang``    freezes the placement thread forever while the
+  heartbeat keeps beating: a wedged input pipeline
 * ``checkpoint.restore`` marks a checkpoint step corrupt when restore
   verifies it, driving the last-good walk (``training/checkpoint.py``)
 * ``storage.write``      raises OSError before an atomic write opens its

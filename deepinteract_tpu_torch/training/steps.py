@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from deepinteract_tpu_torch.data.graph import PairedComplex
+from deepinteract_tpu_torch.data.pipeline import is_placed
 from deepinteract_tpu_torch.models.layers import dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.robustness.guards import apply_guarded_update
@@ -95,7 +96,8 @@ def loss_and_grads(model: DeepInteract, batch: PairedComplex, weight_classes: bo
 
 def train_step(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
                guard: bool = False) -> Dict[str, float]:
-    """One optimization step on ``batch`` (moved to the model's device).
+    """One optimization step on ``batch`` (moved to the model's device
+    unless the placement stage already put it there).
     Returns ``loss`` and the pre-clip ``grad_norm`` over every parameter;
     with ``guard``, a non-finite step skips the update
     (:func:`~deepinteract_tpu_torch.robustness.guards.apply_guarded_update`)
@@ -103,7 +105,8 @@ def train_step(state: TrainState, batch: PairedComplex, weight_classes: bool = F
     skips after this step). The gradients stay in ``.grad``."""
     model = state.model
     device = _device(model)
-    batch = batch.to(device)
+    if not is_placed(batch, device):
+        batch = batch.to(device)
     before = ({name: buf.clone() for name, buf in model.named_buffers()} if guard else None)
     loss = loss_and_grads(model, batch, weight_classes,
                           dropout_generator(state.seed, state.step, device))

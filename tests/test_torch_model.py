@@ -157,8 +157,8 @@ def test_bfloat16_policy_runs_on_cpu(carried):
 
 
 # The training lifecycle's, the model configurations', serving's, the
-# split-phase subsystems' and the fleet's modules, named so that the check below fails if one
-# of them stops being importable on its own.
+# split-phase subsystems', the fleet's and the training input path's modules, named so that
+# the check below fails if one of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
@@ -172,7 +172,8 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "index.prefilter", "index.builder", "index.funnel", "assembly.runner",
     "cli.screen", "cli.index", "cli.query", "cli.assemble", "cli.calibrate",
     "serving.fleet", "serving.router", "serving.autoscaler", "serving.worker_stub",
-    "obs.expfmt"))
+    "obs.expfmt", "data.loader", "data.pipeline", "training.loop", "training.wandb_logger",
+    "cli.train"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -37,12 +37,13 @@ def _clean_fault_state(monkeypatch):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """A tiny dataset and a 2-epoch ``cli.train`` run that checkpointed into
-    ckpt/."""
+    """A tiny dataset and a 2-epoch ``cli.train`` run (one step per
+    dispatch) that checkpointed into ckpt/."""
     root = tmp_path_factory.mktemp("lifecycle")
     write_tiny_npz_dataset(str(root / "dips"), n_complexes=3)
     rc = train_cli.main(["--dips_root", str(root / "dips"), "--num_epochs", "2",
-                         "--ckpt_dir", str(root / "ckpt"), *TINY, *CPU])
+                         "--ckpt_dir", str(root / "ckpt"), "--steps_per_dispatch", "1",
+                         *TINY, *CPU])
     assert rc == 0
     return root
 
@@ -93,9 +94,12 @@ def test_train_cli_preempted_then_resumed_equals_the_uninterrupted_run(trained, 
                                                                         capsys, monkeypatch):
     """DI_FAULTS preempts before epoch 1's second batch: the run prints the
     preempted line and exits 0; ``--resume`` finishes it, and its last/
-    step equals the uninterrupted run's bitwise."""
+    step equals the uninterrupted run's bitwise. One step per dispatch, so
+    the preemption poll falls between the two batches (a run of the
+    default 8 would pull the whole 3-batch epoch before its poll)."""
     argv = ["--dips_root", str(trained / "dips"), "--num_epochs", "2",
-            "--ckpt_dir", str(tmp_path), "--save_every_steps", "1", *TINY, *CPU]
+            "--ckpt_dir", str(tmp_path), "--save_every_steps", "1",
+            "--steps_per_dispatch", "1", *TINY, *CPU]
     monkeypatch.setenv("DI_FAULTS", "train.sigterm=@5")
     faults.configure(None)
     assert train_cli.main(argv) == 0
