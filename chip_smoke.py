@@ -144,21 +144,40 @@ Phases, in order; any failure exits non-zero:
      train complexes in two buckets of 10 (runs of 8 and remainders of 2:
      six dispatches), 4 val and 4 test complexes, with
      ``--steps_per_dispatch 8 --eval_batches_per_dispatch 4
-     --deterministic``, inline (run A), then with ``--device_prefetch
+     --deterministic`` (its steps replay the step graphs), inline (run
+     A), then with ``--device_prefetch
      --packed_cache_dir --profile_dir --profile_steps 2
      --viz_every_n_epochs 1`` and an in-process writer (run B): bitwise
      equal last/ states (weights, AdamW moments), per-step losses and
      histories (timings aside), the visited order equal to the loader's
      run-granular plan, exact (K1, K2, CSR builds) around each run, K1 and
-     K2 at 4 x the steps of dispatches 1-2 in the exported Chrome trace with
+     K2 at 4 x the steps of dispatches 1-2 (and of the warm-up steps of a
+     key first captured there) in the exported Chrome trace with
      its ``step#n``, ``device_step`` and ``h2d`` ranges, run A's span log
      with one ``step`` per dispatch, the viz images, the packs reused by a
      third run that a ``data.place`` fault plan ends non-zero with
      ``PlacementError``; each run's epoch wall, data_wait, h2d and device
      shares, and the pinned bytes at the peak.
+ 13. the train and eval steps as CUDA graphs (one of each per bucket key,
+     ``training/step_graphs.py``) at the flagship width: ``cli.train`` on
+     phase 12's dataset under ``--deterministic`` at dropout 0.1, eager
+     (``LoopConfig.step_graphs=False``) and graphed, then both again with
+     the fifth batch of the epoch's first run of 8 poisoned with NaN:
+     per-step losses and grad norms, histories, last/ states (weights,
+     AdamW moments and count, batch-norm statistics) and test metrics
+     bitwise equal, one skipped step each, exact launch counts (graphed:
+     at the captures only); on a state of its own each capture's (K1, K2,
+     CSR builds) and seconds, one profiled train replay (4, 4, 2) and
+     eval replay (4, 0, 2) beside an eager step's kernel count, no
+     synchronization while a full run of 8 is dispatched (one read of its
+     metrics after), a full run's per-step wall graphed and eager, peak
+     memory with every key captured; then DeepLab, the GCN encoder,
+     regional attention and two-tile decoding with ``--remat``: a graphed
+     run of 2 against two eager steps, bitwise.
 The line before the last is the card's name and power limit; before it, a
 ``{"kernels": [...]}`` JSON line, before that phase 12's ``{"dispatch":
-{...}}`` summary, before that phase 11's ``{"fleet": {...}}`` summary,
+{...}}`` summary, before that phase 13's ``{"step_graphs": {...}}`` one,
+before that phase 11's ``{"fleet": {...}}`` summary,
 before that phase 10's ``{"screening": {...}}`` one,
 and before that phase 9's ``{"serving": {...}}`` one. The last line is the device record
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 and
@@ -202,7 +221,7 @@ from deepinteract_tpu_torch.data.synthetic import (random_backbone, random_raw_c
                                                    random_residue_feats,
                                                    write_tiny_npz_dataset)
 from deepinteract_tpu_torch.models.interaction import interaction_tensor
-from deepinteract_tpu_torch.models.layers import dropout_rng
+from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import ModelConfig
 from deepinteract_tpu_torch.models.stem import PairFactors
 from deepinteract_tpu_torch.models.policy import set_backend_precision
@@ -212,8 +231,10 @@ from deepinteract_tpu_torch.robustness import artifacts, faults
 from deepinteract_tpu_torch.training.checkpoint import PAYLOAD, CheckpointConfig, Checkpointer
 from deepinteract_tpu_torch.training.loop import Trainer, host_snapshot, read_sidecar
 from deepinteract_tpu_torch.training.objective import contact_loss
-from deepinteract_tpu_torch.training.steps import (create_train_state, dropout_generator,
-                                                   eval_step, loss_and_grads, train_step)
+from deepinteract_tpu_torch.training import step_graphs
+from deepinteract_tpu_torch.training.steps import (create_train_state, eval_step,
+                                                   multi_eval_step, multi_train_step,
+                                                   train_step)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet: float32 outside the tensor cores
@@ -226,6 +247,21 @@ TIMED_N = {64: 50, 128: 100, 192: 180, 256: 200, 512: 450, 768: 600}  # bucket -
 
 
 T0 = time.perf_counter()
+
+
+def loss_and_grads(model, batch, seed: int) -> torch.Tensor:
+    """Train-mode forward of ``batch`` with the dropout key of step 0 of a
+    run seeded ``seed``, the contact loss, and its backward into ``.grad``
+    (zeroed first). Returns the loss, detached."""
+    device = batch.contact_map.device
+    model.train()
+    model.zero_grad(set_to_none=True)
+    key = DropoutKey(torch.tensor(seed, device=device), torch.tensor(0, device=device))
+    with dropout_rng(model, key):
+        loss = contact_loss(model(batch.graph1, batch.graph2), batch.contact_map,
+                            batch.pair_mask)
+        loss.backward()
+    return loss.detach()
 
 
 def log(msg: str) -> None:
@@ -716,12 +752,9 @@ def run_train_path(root, seed):
     counts = launches()
     (epoch,) = history
     steps = int(epoch["train_steps"])
-    evals = len(DIPSDataset(root, "val")) + len(DIPSDataset(root, "test"))
-    expected = (LAUNCHES_PER_ENCODE_PAIR * (steps + evals), LAUNCHES_PER_ENCODE_PAIR * steps,
-                BUILDS_PER_ENCODE_PAIR * (steps + evals))
     check(steps == len(COMPLEXES), f"train: {steps} steps, expected {len(COMPLEXES)}")
-    check(counts == expected, f"train: (K1, K2 launches, CSR builds) {counts}, expected "
-          f"{expected} ({steps} train steps, {evals} eval complexes)")
+    _expect_graphed("train", counts, _split(root, "train"),
+                    _split(root, "val") + _split(root, "test"))
     check(epoch["train_skipped_steps"] == 0, "train: the non-finite guard skipped a step")
     for key, value in (("train_loss", epoch["train_loss"]), ("val_ce", epoch["val_ce"]),
                        ("test_ce", test["test_ce"])):
@@ -767,7 +800,7 @@ def compare_train_step(label, model, plain_model, batch, seed, spread_seeds=()):
 
     def step(m, state):
         m.load_state_dict(state)
-        loss = loss_and_grads(m, batch, False, dropout_generator(seed, 0, batch.contact_map.device))
+        loss = loss_and_grads(m, batch, seed)
         return loss.item(), {n: p.grad.detach().clone() for n, p in m.named_parameters()}
 
     loss_k, grads_k = step(model, weights)
@@ -815,13 +848,13 @@ def time_train_step(state, batch, runs: int = 10, warmup: int = 2, split: bool =
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    model, device = state.model, batch.contact_map.device
+    model = state.model
     phases = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
     for _ in range(runs if split else 0):
         t0 = time.perf_counter()
         model.train()
-        model.zero_grad(set_to_none=True)
-        with dropout_rng(model, dropout_generator(state.seed, state.step, device)):
+        state.optimizer.zero_grad()
+        with dropout_rng(model, DropoutKey(state.seed_t, state.step_t)):
             loss = contact_loss(model(batch.graph1, batch.graph2), batch.contact_map,
                                 batch.pair_mask)
         torch.cuda.synchronize()
@@ -829,8 +862,8 @@ def time_train_step(state, batch, runs: int = 10, warmup: int = 2, split: bool =
         loss.backward()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        state.optimizer.update()
-        state.step += 1
+        state.optimizer.apply_update()
+        state.step_t.add_(1)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for key, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2)):
@@ -903,6 +936,33 @@ def _expect_launches(label, counts, encode_pairs, train_steps):
           f"{expected}")
 
 
+# On the card cli.train and cli.test replay one CUDA graph of the train
+# step and one of the eval step per bucket key (training/step_graphs.py).
+# The Python launch counters move at a key's capture, as its warm-up runs
+# and the capture itself do (this many eager steps), and never at a replay.
+GRAPH_COUNTED_RUNS = step_graphs.WARMUP_RUNS + 1
+
+
+def _keys(batches) -> int:
+    """Distinct step-graph keys (every tensor's shape) among ``batches``."""
+    return len({step_graphs.batch_key(b) for b in batches})
+
+
+def _split(root, split) -> list:
+    """A split's batches at batch 1, in the loader's eval order."""
+    return list(BucketedLoader(DIPSDataset(root, split)))
+
+
+def _expect_graphed(label, counts, train_batches, eval_batches, eager_encode_pairs=0):
+    """Exact (K1, K2, CSR builds) around a graphed cli.train / cli.test run
+    that trained ``train_batches`` and evaluated ``eval_batches``: each
+    train key's capture counts GRAPH_COUNTED_RUNS train steps, each eval
+    key's as many eval steps, plus ``eager_encode_pairs`` eager forwards."""
+    t, e = _keys(train_batches), _keys(eval_batches)
+    _expect_launches(label, counts, GRAPH_COUNTED_RUNS * (t + e) + eager_encode_pairs,
+                     GRAPH_COUNTED_RUNS * t)
+
+
 def _train_argv(root, ckpt_dir, seed, *extra):
     """One step per dispatch: a run of the default 8 would pull a batch
     ahead before its preemption poll, and the fault plan would preempt
@@ -933,15 +993,15 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
         root = os.path.join(work, "data")
         write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
                                geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
-        n_train, n_val, n_test = (len(DIPSDataset(root, m)) for m in ("train", "val", "test"))
+        n_train = len(DIPSDataset(root, "train"))
         preempt_at = n_train + 2
         modes = ("epoch_saves", "sync_epoch_saves") if save_modes else ()
         dirs = {name: os.path.join(work, name) for name in ("whole", "preempted", *modes)}
 
         # The uninterrupted run, with a save after every step.
         (hist_a, test_a), counts_a = train(dirs["whole"], "--save_every_steps", "1")
-        _expect_launches("cli.train 2 epochs", counts_a,
-                         LIFECYCLE_EPOCHS * (n_train + n_val) + n_test, LIFECYCLE_EPOCHS * n_train)
+        evals = _split(root, "val") + _split(root, "test")
+        _expect_graphed("cli.train 2 epochs", counts_a, _split(root, "train"), evals)
         # The same with epoch-boundary saves only, written asynchronously
         # and synchronously.
         hist_c = hist_s = []
@@ -965,7 +1025,12 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
         (hist_b, test_b), counts_resume = train(dirs["preempted"], "--save_every_steps", "1",
                                                  "--resume")
         remaining = LIFECYCLE_EPOCHS * n_train - (preempt_at - 1)
-        _expect_launches("resumed cli.train", counts_resume, remaining + n_val + n_test, remaining)
+        # The batches the resumed run trains: epoch 2's plan from its second.
+        resumed = list(BucketedLoader(DIPSDataset(root, "train"), shuffle=True,
+                                      drop_remainder=True, seed=seed).iter_epoch(
+            LIFECYCLE_EPOCHS - 1, start_batch=preempt_at - 1 - n_train))
+        check(len(resumed) == remaining, f"resumed plan {len(resumed)} batches, {remaining} left")
+        _expect_graphed("resumed cli.train", counts_resume, resumed, evals)
 
         ckpts = {name: Checkpointer(CheckpointConfig(directory=d)) for name, d in dirs.items()}
         finals = {name: ck.restore(None, which="last") for name, ck in ckpts.items()}
@@ -1003,7 +1068,7 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
                                          "--seed", str(seed), "--csv_out",
                                          os.path.join(work, "test_top_metrics.csv"), *flags])
         metrics_t, counts_test = _counted(lambda: test_cli.run(test_args))
-        _expect_launches("cli.test", counts_test, n_test, 0)
+        _expect_graphed("cli.test", counts_test, [], _split(root, "test"))
         model = load_model(model_config_from_args(test_args), device, ckpt_name=dirs["whole"])
         trainer = Trainer(model)
         ref_t = trainer.evaluate(trainer.init_state(), BucketedLoader(DIPSDataset(root, "test")),
@@ -1272,9 +1337,9 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         (epoch,) = history
         steps = int(epoch["train_steps"])
-        evals = len(DIPSDataset(root, "val")) + len(DIPSDataset(root, "test"))
         check(steps == len(sizes), f"train {name}: {steps} steps, expected {len(sizes)}")
-        _expect_launches(f"train {name}", counts, steps + evals, steps)
+        _expect_graphed(f"train {name}", counts, _split(root, "train"),
+                        _split(root, "val") + _split(root, "test"))
         check(epoch["train_skipped_steps"] == 0, f"train {name}: the guard skipped a step")
         for key, value in (("train_loss", epoch["train_loss"]), ("val_ce", epoch["val_ce"]),
                            ("test_ce", test["test_ce"])):
@@ -1302,8 +1367,9 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
 # the serving phase, to 2 / 1 / 1 / 1 with the fleet phase, and to
 # 1 / 1 / 1 / 1 with the dispatch-loop phase.
 CONFIG_RUNS = {"predict": 1, "predict_tiled": 1, "train": 1, "train_tiled": 1}
-PHASE6_PREDICT_RUNS = 3  # per complex (20, then 10, then 5 before the dispatch-loop phase)
-PHASE6_TRAIN_RUNS = 2  # per batch (5, then 3)
+# Cut to 2 and 1 with the step-graph phase (from 3 and 2).
+PHASE6_PREDICT_RUNS = 2  # per complex (20, then 10, then 5 before the dispatch-loop phase)
+PHASE6_TRAIN_RUNS = 1  # per batch (5, then 3, then 2)
 
 
 def run_model_configs(cfg, raws, tiled_raw, seed, device, smi, runs=CONFIG_RUNS) -> dict:
@@ -1362,7 +1428,7 @@ def compare_remat_step(label, cfg, remat_cfg, batch, seed, device) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            loss = loss_and_grads(m, batch, False, dropout_generator(seed, 0, device))
+            loss = loss_and_grads(m, batch, seed)
             torch.cuda.synchronize()
             out[name] = (loss.item(), {n: p.grad.detach().clone()
                                        for n, p in m.named_parameters()},
@@ -1533,7 +1599,7 @@ def run_importer(cfg, raws, seed, device, flags=()) -> dict:
         test_args = test_cli.parse_args(["--dips_root", root, "--ckpt_name", flag_ckpt,
                                          "--csv_out", os.path.join(work, "top.csv"), *flags])
         metrics, counts_test = _counted(lambda: _quiet(lambda: test_cli.run(test_args))[0])
-        _expect_launches("cli.test --ckpt_name <file.ckpt>", counts_test, 1, 0)
+        _expect_graphed("cli.test --ckpt_name <file.ckpt>", counts_test, [], _split(root, "test"))
         trainer = Trainer(model)
         ref_t = trainer.evaluate(trainer.init_state(), BucketedLoader(DIPSDataset(root, "test")),
                                  stage="test")
@@ -1544,7 +1610,8 @@ def run_importer(cfg, raws, seed, device, flags=()) -> dict:
                                    os.path.join(work, "ft"), "--log_every", "0",
                                    "--seed", str(seed), *flags])
         (history, _), counts_ft = _counted(lambda: train_cli.run(ft))
-        _expect_launches("cli.train --fine_tune --ckpt_name <imported>", counts_ft, 3, 1)
+        _expect_graphed("cli.train --fine_tune --ckpt_name <imported>", counts_ft,
+                        _split(root, "train"), _split(root, "val") + _split(root, "test"))
         check(math.isfinite(history[0]["train_loss"]), "fine-tune: train_loss not finite")
         log(f"  cli.test --ckpt_name flagship.ckpt: launches {counts_test}, metrics equal the "
             f"imported model's (test_ce {metrics['test_ce']:.6f}); --fine_tune --ckpt_name "
@@ -1664,7 +1731,9 @@ def run_supervisor(seed, flags=(), hang_timeout_s=HANG_TIMEOUT_S) -> dict:
 # COMPLEXES, four slots of one, and the over-bucket 600x450 -> 768x512.
 SERVE_WARMUP = ((128, 128, 1), (256, 192, 1), (64, 256, 1), (256, 192, 4),
                 TILED_COMPLEX + (1,))
-SERVE_RUNS = 10  # timed requests per bucket (the tiled key's too), each side
+# Timed requests per bucket (the tiled key's too), each side: 10, cut to 5
+# with the step-graph phase.
+SERVE_RUNS = 5
 
 
 def _served_batch(engine, raws):
@@ -2076,7 +2145,7 @@ SCREEN_SEED_OFFSET = 1
 SCREEN_BATCH = 4  # --screen_batch: chains per encode, pairs per decode
 SCREEN_PREEMPT_AT = 5  # decode batches before the guard is requested
 SCREEN_NAIVE_PAIRS = 16  # pairs also timed through engine.predict
-SCREEN_TIME_RUNS = 5  # CUDA-event repeats per split-phase graph
+SCREEN_TIME_RUNS = 3  # CUDA-event repeats per split-phase graph (5 before the step-graph phase)
 ENCODE_COUNTS = (2, 0, 1)  # (K1, K2, CSR builds) per encode capture: 2 GT layers, 1 CSR
 # An item decoded in a batch (or from embeddings encoded in one) against the
 # same item alone: phase 9's bar for a slot of a coalesced batch.
@@ -2440,7 +2509,7 @@ FLEET_WARMUP = "128x128x1,256x192x1"  # the engine workers' warm-up keys
 FLEET_COUNTS = (4, 0, 2)  # (K1, K2, CSR builds) per flagship capture in a worker
 FLEET_LOAD_THREADS = 16  # concurrent /predict clients under the SIGKILL
 ROLLOVER_LOAD_THREADS = 8  # and under the rollover
-FLEET_TIME_RUNS = 10  # routed and direct requests per bucket
+FLEET_TIME_RUNS = 5  # routed and direct requests per bucket (10 before the step-graph phase)
 # --fleet_warm_timeout_s: the aborted rollover waits it out. A rollover of
 # two flagship workers under 16 clients took 24.3 s (PR 9's first run).
 FLEET_WARM_TIMEOUT_S = 32.0
@@ -2812,7 +2881,7 @@ def run_fleet(cfg, seed, device, smi, work, route_files) -> dict:
                                           screen["ranked"], direct.records)
         log(f"  routed /predict vs in-process replays of the same key: {routed}")
 
-        # 11e (part): routed against direct latency per bucket, medians of 10.
+        # 11e (part): routed against direct latency per bucket, medians of FLEET_TIME_RUNS.
         ports = {wid: w["port"] for wid, w in stats["fleet"]["workers"].items()
                  if w["state"] == "healthy"}
         latency = {}
@@ -3034,35 +3103,44 @@ class _Recorder:
 
 @contextlib.contextmanager
 def _visited(into: list):
-    """Record each train step's (n1, n2) and loss, in order, by wrapping
-    the loop's train_step (the sizes are read after the run)."""
+    """Record each train step's (n1, n2), loss and grad norm, in order, by
+    wrapping the loop's multi_train_step. Nothing is read inside the run:
+    the device values are kept and read after it."""
     from deepinteract_tpu_torch.training import loop as loop_mod
 
-    real = loop_mod.train_step
+    real = loop_mod.multi_train_step
 
-    def step(state, batch, *a, **kw):
-        m = real(state, batch, *a, **kw)
-        into.append((batch.graph1.num_nodes, batch.graph2.num_nodes, m["loss"]))
+    def steps(state, batches, *a, **kw):
+        m = real(state, batches, *a, **kw)
+        into.extend((b.graph1.num_nodes, b.graph2.num_nodes, m["loss"][j], m["grad_norm"][j])
+                    for j, b in enumerate(batches))
         return m
 
-    loop_mod.train_step = step
+    loop_mod.multi_train_step = steps
     try:
         yield
     finally:
-        loop_mod.train_step = real
+        loop_mod.multi_train_step = real
 
 
-def _dispatches(loader) -> list:
+def _read_visited(visited: list) -> list:
+    """[(n1, n2, loss, grad_norm)] on the host."""
+    return [(int(a[0]), int(b[0]), float(loss), float(norm)) for a, b, loss, norm in visited]
+
+
+def _dispatches(loader, k: int = DISPATCH_K, buckets: bool = False) -> list:
     """Steps per train dispatch of the loader's epoch-0 plan, by the
     loop's rule: a run of exactly K same-bucket batches is one dispatch,
-    a shorter run one dispatch per batch."""
+    a shorter run one dispatch per batch. With ``buckets``, (bucket,
+    steps) pairs."""
     runs = []
     for bucket, _ in loader.epoch_plan(0):
-        if runs and runs[-1][0] == bucket and runs[-1][1] < DISPATCH_K:
+        if runs and runs[-1][0] == bucket and runs[-1][1] < k:
             runs[-1][1] += 1
         else:
             runs.append([bucket, 1])
-    return [d for _, n in runs for d in ([n] if n == DISPATCH_K else [1] * n)]
+    out = [(b, d) for b, n in runs for d in ([n] if n == k else [1] * n)]
+    return out if buckets else [d for _, d in out]
 
 
 def _pack_stamps(pack_root) -> dict:
@@ -3109,8 +3187,6 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as work:
         root, packs, prof = (os.path.join(work, d) for d in ("data", "packs", "profile"))
         write_dispatch_dataset(root, seed)
-        n_train, n_eval = len(DISPATCH_TRAIN), len(DISPATCH_VAL) + len(DISPATCH_TEST)
-
         def argv(ckpt, *extra):
             return ["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
                     "--log_every", "0", "--deterministic", "--steps_per_dispatch",
@@ -3158,8 +3234,7 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
             state_diff = _tree_diff(finals["A"], finals["B"])
             check(state_diff == 0.0, f"inline and --device_prefetch runs differ: last/ state max "
                   f"|diff| {state_diff:.3g}")
-            steps = {n: [(int(a[0]), int(b[0]), loss) for a, b, loss in v]
-                     for n, v in visited.items()}
+            steps = {n: _read_visited(v) for n, v in visited.items()}
             check([s[2] for s in steps["A"]] == [s[2] for s in steps["B"]],
                   "inline and --device_prefetch runs differ in their per-step losses")
             for key in hist_a[0]:
@@ -3181,17 +3256,25 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
             dispatches = _dispatches(plan_loader)
             check(sorted(dispatches) == [1, 1, 1, 1, DISPATCH_K, DISPATCH_K],
                   f"dispatches {dispatches}")
-            # Exact launch counts: 4 K1 per encode pair (train steps, each eval
-            # complex, and run B's viz forward), 4 K2 per train step.
+            # Exact launch counts: the step graphs' captures (2 train keys, 3
+            # eval keys) and run B's eager viz forward.
+            train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
             for n, counts, extra_evals in (("A", counts_a, 0), ("B", counts_b, 1)):
-                _expect_launches(f"run {n}", counts, n_train + n_eval + extra_evals, n_train)
-            # The profile window: dispatches [1, 1 + profile_steps).
-            window_steps = sum(dispatches[1:1 + DISPATCH_PROFILE_STEPS])
+                _expect_graphed(f"run {n}", counts, train_b, eval_b, extra_evals)
+            # The profile window: dispatches [1, 1 + profile_steps). A key's
+            # first dispatch runs its warm-up steps eagerly before the capture.
+            window = _dispatches(plan_loader, buckets=True)[:1 + DISPATCH_PROFILE_STEPS]
+            first = {}
+            for i, (bucket, _) in enumerate(window):
+                first.setdefault(bucket, i)
+            warmups = step_graphs.WARMUP_RUNS * sum(i >= 1 for i in first.values())
+            window_steps = sum(d for _, d in window[1:])
             trace = _trace_counts(prof)
-            want = LAUNCHES_PER_ENCODE_PAIR * window_steps
+            want = LAUNCHES_PER_ENCODE_PAIR * (window_steps + warmups)
             check((trace["k1"], trace["k2"]) == (want, want),
                   f"trace K1/K2 kernels {trace['k1']}/{trace['k2']}, expected {want} each "
-                  f"({window_steps} steps in dispatches 1..{DISPATCH_PROFILE_STEPS})")
+                  f"({window_steps} steps in dispatches 1..{DISPATCH_PROFILE_STEPS}, "
+                  f"{warmups} warm-up steps)")
             check(trace["device_step"] >= DISPATCH_PROFILE_STEPS and trace["h2d"] >= 1,
                   f"trace ranges: device_step {trace['device_step']}, h2d {trace['h2d']}")
             check(trace["steps"] == [f"step#{i}" for i in range(1, 1 + DISPATCH_PROFILE_STEPS)],
@@ -3242,6 +3325,290 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
     return {"launches": {"inline": counts_a, "prefetch": counts_b}, "dispatches": dispatches,
             "walls_s": walls, "telemetry": tele, "pinned_peak_bytes": pinned_peak,
             "trace": trace, "window_steps": window_steps, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the train and eval steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+STEP_GRAPH_DROPOUT = 0.1
+STEP_GRAPH_POISON = 5  # the poisoned batch: the fifth of the epoch's first run of K
+STEP_GRAPH_TIMED_RUNS = 1  # full runs of K timed per path
+# Other configurations: one graphed run of K = 2 against eager, bitwise.
+STEP_GRAPH_CONFIGS = {"deeplab": ((100, 80), (110, 90)), "gcn": ((100, 80), (110, 90)),
+                      "attention": ((100, 80), (110, 90)), "tiled_remat": TILED_TRAIN}
+CSR_BUILD_KERNEL = "searchsorted"  # the in-edge CSR build's last kernel, one per build
+
+
+def _cli_train_run(argv, graphs: bool, nan_at=None):
+    """``cli.train`` in process with ``LoopConfig.step_graphs`` set to
+    ``graphs``, batch ``nan_at`` (1-based) poisoned by the fault plan:
+    (history, test metrics, launches, [(n1, n2, loss, grad_norm)], wall)."""
+    real = train_cli.loop_config_from_args
+    train_cli.loop_config_from_args = lambda a: dataclasses.replace(real(a), step_graphs=graphs)
+    visited = []
+    if nan_at is not None:
+        faults.configure({"train.nan_batch": [nan_at]})
+    try:
+        with _visited(visited):
+            t0 = time.perf_counter()
+            (history, test), counts = _counted(lambda: train_cli.run(train_cli.parse_args(argv)))
+            wall = time.perf_counter() - t0
+    finally:
+        train_cli.loop_config_from_args = real
+        faults.reset()
+    return history, test, counts, _read_visited(visited), wall
+
+
+def _same_floats(a, b) -> bool:
+    """Bitwise equal sequences of floats (NaN equals NaN)."""
+    return len(a) == len(b) and all(x == y or (x != x and y != y) for x, y in zip(a, b))
+
+
+def _profile_kernels(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: K1 kernels, K2 kernels (its
+    second pass, one per launch), CSR builds and all device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"k1": sum("edge_attention_fwd" in n for n in names),
+            "k2": sum("edge_attention_bwd_dst" in n for n in names),
+            "csr_builds": sum(CSR_BUILD_KERNEL in n for n in names), "kernels": len(names)}
+
+
+def _full_run_ms(state, run, graphs) -> float:
+    """A full run of K steps dispatched and its metrics read once, as the
+    loop does: host ms per step (median of STEP_GRAPH_TIMED_RUNS)."""
+    from deepinteract_tpu_torch.training.loop import _Fetch
+
+    walls = []
+    for _ in range(STEP_GRAPH_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _Fetch(multi_train_step(state, run, guard=True, graphs=graphs)).rows()
+        walls.append((time.perf_counter() - t0) * 1e3 / len(run))
+    return statistics.median(walls)
+
+
+def _config_batches(work, name, sizes, seed) -> list:
+    root = os.path.join(work, f"cfg_{name}")
+    write_tiny_npz_dataset(root, sizes=sizes, seed=seed, knn=constants.KNN,
+                           geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+    batches = _split(root, "train")
+    check(_keys(batches) == 1, f"{name}: the batches span {_keys(batches)} keys, expected 1")
+    return batches
+
+
+def run_step_graph_configs(cfg, seed, device, work) -> dict:
+    """DeepLab, the GCN encoder, regional attention and two-tile decoding
+    with ``--remat``: one graphed run of K = 2 against two eager steps
+    from the same weights
+    under deterministic algorithms: metrics and every state tensor
+    bitwise, and the capture's (K1, K2, CSR builds)."""
+    variants = {
+        "deeplab": dataclasses.replace(cfg, interact_module_type="deeplab"),
+        "gcn": dataclasses.replace(cfg, gnn_layer_type="gcn"),
+        "attention": dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, use_attention=True)),
+        "tiled_remat": dataclasses.replace(cfg, tile_pair_map=True, decoder=dataclasses.replace(
+            cfg.decoder, remat=True))}
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, c in variants.items():
+            batches = [b.to(device) for b in _config_batches(work, name,
+                                                             STEP_GRAPH_CONFIGS[name], seed)]
+            eager = create_train_state(load_model(c, device, seed=seed), seed=seed)
+            graphed = create_train_state(load_model(c, device, seed=seed), seed=seed)
+            graphs = step_graphs.StepGraphs(graphed, guard=True)
+            m_e = multi_train_step(eager, batches, guard=True)
+            m_g = multi_train_step(graphed, batches, guard=True, graphs=graphs)
+            for key in m_e:
+                check(torch.equal(m_e[key], m_g[key]),
+                      f"{name}: graphed {key} {m_g[key].tolist()} vs eager {m_e[key].tolist()}")
+            diff = max((a.double() - b.double()).abs().max().item()
+                       for a, b in zip(eager.tensors(), graphed.tensors()) if a.numel())
+            check(diff == 0.0, f"{name}: graphed state differs from eager by {diff:.3g}")
+            (entry,) = graphs.train_entries.values()
+            want = (0 if name == "gcn" else LAUNCHES_PER_ENCODE_PAIR,) * 2 + (
+                BUILDS_PER_ENCODE_PAIR,)
+            counts = (entry.k1_launches, entry.k2_launches, entry.csr_builds)
+            check(counts == want, f"{name}: capture counts {counts}, expected {want}")
+            out[name] = {"capture_s": entry.seconds, "capture_counts": counts,
+                         "losses": m_g["loss"].tolist()}
+            log(f"  {name}: graphed run of 2 equals eager bitwise (metrics, state), capture "
+                f"{entry.seconds:.2f} s, (K1, K2, CSR builds) {counts}")
+            del eager, graphed, graphs
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def run_step_graphs(seed, device, smi, flags=()) -> dict:
+    """Phase 13: ``cli.train`` on phase 12's dataset under
+    ``--deterministic`` at dropout 0.1, eager (``step_graphs=False``) and
+    graphed, clean and with one batch of a run of 8 poisoned: per-step
+    losses and grad norms, histories, last/ states (weights, AdamW
+    moments and count, batch-norm statistics) and test metrics bitwise
+    equal, exact launch counts; then on a state of its own: the captures'
+    counts and seconds, one profiled replay of each kind against an eager
+    step, a full run's per-step wall graphed and eager, the host's
+    blocking reads per run, peak memory; then the other configurations."""
+    log("== phase 13: train and eval steps as CUDA graphs (cli.train eager vs graphed, "
+        "--deterministic, dropout 0.1; DeepLab, GCN, tiled remat)")
+    t_phase = time.perf_counter()
+    from deepinteract_tpu_torch.obs import spans as obs_spans
+
+    obs_spans.close()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as work:
+        root = os.path.join(work, "data")
+        write_dispatch_dataset(root, seed)
+        plan = _dispatches(BucketedLoader(DIPSDataset(root, "train"), shuffle=True,
+                                          drop_remainder=True, seed=seed,
+                                          dispatch_run=DISPATCH_K), buckets=True)
+        start = 0
+        for _, d in plan:
+            if d == DISPATCH_K:
+                break
+            start += d
+        nan_at = start + STEP_GRAPH_POISON
+
+        def argv(ckpt):
+            return ["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
+                    "--log_every", "0", "--deterministic", "--dropout_rate",
+                    str(STEP_GRAPH_DROPOUT), "--steps_per_dispatch", str(DISPATCH_K),
+                    "--eval_batches_per_dispatch", str(DISPATCH_EVAL_K), "--ckpt_dir",
+                    os.path.join(work, ckpt), *flags]
+
+        runs = {}
+        for name, graphs, poison in (("eager", False, None), ("graphed", True, None),
+                                     ("eager_nan", False, nan_at),
+                                     ("graphed_nan", True, nan_at)):
+            runs[name] = _cli_train_run(argv(name), graphs, poison)
+        finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
+            None, which="last") for n in runs}
+        train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
+        for a, b in (("eager", "graphed"), ("eager_nan", "graphed_nan")):
+            (hist_a, test_a, _, steps_a, _), (hist_b, test_b, _, steps_b, _) = runs[a], runs[b]
+            diff = _tree_diff(finals[a], finals[b])
+            check(diff == 0.0, f"{b}: last/ state differs from {a}'s by {diff:.3g}")
+            check([s[:2] for s in steps_a] == [s[:2] for s in steps_b]
+                  and _same_floats([s[2] for s in steps_a], [s[2] for s in steps_b])
+                  and _same_floats([s[3] for s in steps_a], [s[3] for s in steps_b]),
+                  f"{b}: per-step losses or grad norms differ from {a}'s")
+            for key in hist_a[0]:
+                if key.endswith("seconds") or key.startswith("tele_"):
+                    continue
+                check(_same_metric(hist_a[0][key], hist_b[0][key], 0.0),
+                      f"{b}: history {key} {hist_b[0][key]} vs {a}'s {hist_a[0][key]}")
+            check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
+                  f"{b}: test metrics differ from {a}'s")
+        for name in ("eager_nan", "graphed_nan"):
+            skipped = runs[name][0][0]["train_skipped_steps"]
+            check(skipped == 1, f"{name}: {skipped} skipped steps, expected 1")
+            check(not math.isfinite(runs[name][3][nan_at - 1][2]),
+                  f"{name}: step {nan_at} was not the poisoned one")
+        for name in ("graphed", "graphed_nan"):
+            _expect_graphed(name, runs[name][2], train_b, eval_b)
+        for name in ("eager", "eager_nan"):
+            _expect_launches(name, runs[name][2], len(train_b) + len(eval_b), len(train_b))
+
+        # A state of its own: captures, profiled replays, timed runs.
+        model_cfg = model_config_from_args(train_cli.parse_args(argv("own")))
+        state = create_train_state(load_model(model_cfg, device, seed=seed), seed=seed)
+        graphs = step_graphs.StepGraphs(state, guard=True)
+        placed = [b.to(device) for b in train_b]
+        by_key = {}
+        for b in placed:
+            by_key.setdefault(step_graphs.batch_key(b), []).append(b)
+        runs_k = [v[:DISPATCH_K] for v in by_key.values()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for run in runs_k:
+            graphs.train(run[0])
+        evals = [b.to(device) for b in eval_b]
+        for b in evals:
+            graphs.eval(b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for e in graphs.entries():
+            want = (LAUNCHES_PER_ENCODE_PAIR, LAUNCHES_PER_ENCODE_PAIR if e.kind == "train"
+                    else 0, BUILDS_PER_ENCODE_PAIR)
+            counts = (e.k1_launches, e.k2_launches, e.csr_builds)
+            check(counts == want, f"{e.kind} capture counts {counts}, expected {want}")
+        big = max(runs_k, key=lambda r: r[0].contact_map.numel())
+        train_prof = _profile_kernels(lambda: graphs.train(big[0]))
+        eval_prof = _profile_kernels(lambda: graphs.eval(evals[0]))
+        eager_prof = _profile_kernels(lambda: train_step(state, big[0], guard=True))
+        check((train_prof["k1"], train_prof["k2"], train_prof["csr_builds"])
+              == (LAUNCHES_PER_ENCODE_PAIR, LAUNCHES_PER_ENCODE_PAIR, BUILDS_PER_ENCODE_PAIR),
+              f"profiled train replay: {train_prof}")
+        check((eval_prof["k1"], eval_prof["k2"], eval_prof["csr_builds"])
+              == (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR),
+              f"profiled eval replay: {eval_prof}")
+        # The host's blocking reads in a full run: none while it is
+        # dispatched (sync debug mode warns on each), one for its metrics.
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                metrics = multi_train_step(state, big, guard=True, graphs=graphs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (The mode's own notice that it is a prototype is no sync.)
+        syncs = sum("called a synchronizing" in str(w.message) for w in caught)
+        check(syncs == 0, f"a graphed run synchronized {syncs} times: "
+              f"{[str(w.message)[:120] for w in caught[:3]]}")
+        from deepinteract_tpu_torch.training.loop import _Fetch
+
+        rows = _Fetch(metrics).rows()
+        check(len(rows) == len(big) and all(math.isfinite(r["loss"]) for r in rows),
+              f"graphed run metrics {rows}")
+        step_ms = {"graphed": _full_run_ms(state, big, graphs),
+                   "eager": _full_run_ms(state, big, None)}
+        bucket = tuple(big[0].contact_map.shape[1:])
+        inventory = graphs.inventory()
+        del state, graphs, placed, by_key, runs_k, evals, big
+        torch.cuda.empty_cache()
+        configs = run_step_graph_configs(model_cfg, seed, device, work)
+
+    tele = {n: {k: runs[n][0][0][k] for k in ("epoch_seconds", "train_seconds",
+                                               "tele_device_frac", "tele_device_s",
+                                               "tele_eval_s")} for n in runs}
+    seconds = time.perf_counter() - t_phase
+    for n, t in tele.items():
+        log(f"  {n}: cli.train wall {runs[n][4]:.3f} s, epoch {t['epoch_seconds']:.3f} s "
+            f"(train {t['train_seconds']:.3f} s, eval {t['tele_eval_s']:.3f} s), device "
+            f"{t['tele_device_frac']:.2%} ({t['tele_device_s']:.3f} s), launches {runs[n][2]}")
+    log(f"  eager vs graphed bitwise equal (per-step losses and grad norms, history, last/ "
+        f"state, test metrics), clean and with batch {nan_at} poisoned (1 skipped step each)")
+    for e in inventory:
+        log(f"  capture {e['kind']} {e['key'][-1]}: {e['capture_s']:.2f} s (warm-up "
+            f"{e['warm_up_s']:.2f}, set-up {e['enter_s']:.2f}, body {e['body_s']:.2f}, "
+            f"instantiate {e['instantiate_s']:.2f}), (K1, K2, CSR) {e['counts']}")
+    log(f"  a profiled train replay at {bucket}: K1 {train_prof['k1']} K2 {train_prof['k2']} "
+        f"CSR builds {train_prof['csr_builds']} of {train_prof['kernels']} kernels; an eager "
+        f"step {eager_prof['kernels']} kernels; an eval replay K1 {eval_prof['k1']} K2 "
+        f"{eval_prof['k2']} CSR {eval_prof['csr_builds']} of {eval_prof['kernels']}")
+    log(f"  full run of {DISPATCH_K} at {bucket}: {step_ms['graphed']:.3f} ms a step graphed, "
+        f"{step_ms['eager']:.3f} ms eager (median of {STEP_GRAPH_TIMED_RUNS}); blocking reads "
+        f"per run 1 (syncs while dispatching {syncs}); peak {peak:.3f} GiB with "
+        f"{len(inventory)} captures; card {smi}")
+    log(f"  phase 13: {seconds:.1f} s")
+    return {"launches": {n: runs[n][2] for n in runs}, "telemetry": tele,
+            "walls_s": {n: runs[n][4] for n in runs}, "poisoned_batch": nan_at,
+            "captures": inventory, "profiled_train_replay": train_prof,
+            "profiled_eval_replay": eval_prof, "profiled_eager_step": eager_prof,
+            "full_run_step_ms": step_ms, "full_run_bucket": bucket,
+            "blocking_reads_per_run": 1, "syncs_while_dispatching": syncs,
+            "peak_gib": peak, "configs": configs, "seconds": seconds}
 
 
 def main(argv=None) -> int:
@@ -3365,6 +3732,7 @@ def main(argv=None) -> int:
         screening = run_screening(cfg, args.seed, device, smi, work)
         fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
     dispatch = run_dispatch_loop(args.seed, device, smi)
+    graphs13 = run_step_graphs(args.seed, device, smi)
     log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                   if not k.startswith("train_six")}))
     config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
@@ -3443,7 +3811,13 @@ def main(argv=None) -> int:
                              "fleet_worker_per_capture": fleet["fleet_worker_per_capture"],
                              # Phase 12: around the inline and the prefetching run.
                              **{f"dispatch_{mode}": c[0]
-                                for mode, c in dispatch["launches"].items()}},
+                                for mode, c in dispatch["launches"].items()},
+                             # Phase 13: around each cli.train run (graphed: at the
+                             # captures), and in one profiled train and eval replay.
+                             **{f"step_graphs_{mode}": c[0]
+                                for mode, c in graphs13["launches"].items()},
+                             "train_replay_profiled": graphs13["profiled_train_replay"]["k1"],
+                             "eval_replay_profiled": graphs13["profiled_eval_replay"]["k1"]},
         "dispatch_profile_window_k1": dispatch["trace"]["k1"],
         "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
         "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
@@ -3475,7 +3849,11 @@ def main(argv=None) -> int:
                              "route_assembly": fleet["routes"]["assembly"]["launches"][1],
                              "fleet_worker_per_capture": FLEET_COUNTS[1],
                              **{f"dispatch_{mode}": c[1]
-                                for mode, c in dispatch["launches"].items()}},
+                                for mode, c in dispatch["launches"].items()},
+                             **{f"step_graphs_{mode}": c[1]
+                                for mode, c in graphs13["launches"].items()},
+                             "train_replay_profiled": graphs13["profiled_train_replay"]["k2"],
+                             "eval_replay_profiled": graphs13["profiled_eval_replay"]["k2"]},
         "dispatch_profile_window_k2": dispatch["trace"]["k2"],
         "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
         "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -3495,6 +3873,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"screening": screening}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"step_graphs": graphs13}), flush=True)
     print(json.dumps({"dispatch": dispatch}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

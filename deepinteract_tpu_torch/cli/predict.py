@@ -16,12 +16,13 @@ helper bulk screening ranks with), and a last stdout line that is the
 other weights). ``--weights`` takes a flat-path ``.npz`` of JAX
 variables (``weights.save_npz``); ``--ckpt_name`` a checkpoint directory
 of the port's trainer, whose best/ step is restored; with neither the
-model gets the port's seeded init. Runs on the GPU unless ``--device
-cpu`` is given.
+model gets the port's seeded init. ``--input_indep`` zeroes every input
+feature first (the reference's control). Runs on the GPU unless
+``--device cpu`` is given.
 
     python -m deepinteract_tpu_torch.cli.predict --input_npz X --output_dir Y \
         [--weights W.npz | --ckpt_name DIR] [--top_k 10 [--calibration C.json]] \
-        [--device cpu]
+        [--input_indep] [--device cpu]
 """
 
 from __future__ import annotations
@@ -72,8 +73,10 @@ def load_model(cfg: ModelConfig, device, weights: Union[str, Mapping, None] = No
 
 
 @torch.inference_mode()
-def predict_complex(raw: Dict, model: DeepInteract, device) -> Dict[str, np.ndarray]:
-    """Predict one raw complex (``data.io.load_complex_npz``'s dict).
+def predict_complex(raw: Dict, model: DeepInteract, device,
+                    input_indep: bool = False) -> Dict[str, np.ndarray]:
+    """Predict one raw complex (``data.io.load_complex_npz``'s dict);
+    ``input_indep`` zeroes its input features first.
 
     Returns float32 numpy arrays: ``contact_prob_map`` [n1, n2], ``logits``
     [n1, n2, 2], and the representations the encoder gives, depadded (node
@@ -84,7 +87,7 @@ def predict_complex(raw: Dict, model: DeepInteract, device) -> Dict[str, np.ndar
     set_backend_precision(model.cfg.gnn.compute_dtype)
     n1 = raw["graph1"]["node_feats"].shape[0]
     n2 = raw["graph2"]["node_feats"].shape[0]
-    batch = stack_complexes([to_paired_complex(raw)]).to(device)
+    batch = stack_complexes([to_paired_complex(raw, input_indep=input_indep)]).to(device)
     logits, reps = model(batch.graph1, batch.graph2, return_representations=True)
     logits = logits[0, :n1, :n2].float()
     out = {"logits": logits.cpu().numpy(),
@@ -108,6 +111,8 @@ def main(argv=None) -> int:
                              "pair_summary, as bulk screening ranks): writes "
                              "top_contacts.json and makes the last stdout line a "
                              "machine-readable JSON summary")
+    parser.add_argument("--input_indep", action="store_true",
+                        help="zero all input features (the reference's control)")
     add_restore_args(parser)
     add_calibration_args(parser)
     args = parser.parse_args(argv)
@@ -133,7 +138,8 @@ def main(argv=None) -> int:
             expect_signature=args.ckpt_name or (
                 carried_signature(model) if args.weights else seeded_signature(args.seed)),
             allow_stale=args.allow_stale_calibration)
-    out = predict_complex(load_complex_npz(args.input_npz), model, device)
+    out = predict_complex(load_complex_npz(args.input_npz), model, device,
+                          input_indep=args.input_indep)
     os.makedirs(args.output_dir, exist_ok=True)
     saved = []
     for name in ("contact_prob_map",) + REPRESENTATIONS:

@@ -35,6 +35,11 @@ dict.
 flags) as a watched child (``training/supervisor.py``): a crash or a hang
 restarts it into ``--resume``, a crash loop opens a circuit breaker, and
 the last stdout line is the ``train_supervise/v1`` record.
+
+The test split's per-target top-k CSV goes to ``test_top_metrics.csv``
+in the working directory, as the JAX CLI writes it (``--test_csv``
+elsewhere). On the card each train step and each eval batch of a bucket
+key replays that key's CUDA graph (``training/step_graphs.py``).
 """
 
 from __future__ import annotations
@@ -69,8 +74,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_data_args(parser)
     add_training_args(parser)
     add_logging_args(parser)
-    parser.add_argument("--test_csv", type=str, default=None,
-                        help="write the test split's per-target top-k metrics here")
+    parser.add_argument("--test_csv", type=str, default="test_top_metrics.csv",
+                        help="the test split's per-target top-k metrics (default: "
+                             "test_top_metrics.csv in the working directory, as the "
+                             "JAX CLI writes it)")
     args = parser.parse_args(argv)
     if args.fine_tune and not args.ckpt_name:
         parser.error("--fine_tune needs --ckpt_name (the checkpoint to warm-start from)")

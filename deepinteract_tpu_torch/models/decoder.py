@@ -85,14 +85,17 @@ def remat_call(module: nn.Module, remat_policy: str, *args):
     """``module(*args)`` rematerialized in the backward when grad is
     enabled (``torch.utils.checkpoint``, non-reentrant): 'full' keeps only
     the inputs, 'convs' also the conv outputs. Without grad, a plain
-    call."""
+    call. No block draws from torch's generators (dropout hashes its
+    masks from a key, ``layers.DropoutKey``), so the generators' states
+    are not saved: reading the card's would fail inside a CUDA graph
+    capture."""
     if not torch.is_grad_enabled():
         return module(*args)
     if remat_policy == "convs":
-        return checkpoint(module, *args, use_reentrant=False,
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                        _save_convs))
-    return checkpoint(module, *args, use_reentrant=False)
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def masked_instance_norm(x, mask, weight, bias, eps: float = 1e-6):

@@ -10,6 +10,7 @@ parameter tree across by path.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional
 
 import torch
@@ -135,43 +136,107 @@ class ResBlock(nn.Module):
         return x + h
 
 
+_M32 = 0xFFFFFFFF
+# Odd multipliers below 2**31: a product with a 32-bit value stays inside
+# int64, so the hash is exact on every device.
+_MUL = (0x7FEB352D, 0x2C1B3C6D, 0x297A2D39)
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash of int64 tensors holding values in
+    [0, 2**32): xor-shift / multiply rounds, every product masked back to
+    32 bits."""
+    x = x ^ (x >> 16)
+    x = (x * _MUL[0]) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MUL[1]) & _M32
+    return x ^ (x >> 16)
+
+
+class DropoutKey:
+    """The dropout key of one train step: the run's seed and the step
+    counter, both int64 tensors on the device (``TrainState.seed_t`` /
+    ``step_t``), and a stream (0, or a tile's fork). A mask is a
+    counter-based hash of (seed, step, stream, the module's index, the
+    element's index), computed on the device by torch ops: no generator
+    state, no host read, the same masks eager and inside a CUDA graph, and
+    the same masks again when a step is recomputed (remat) or retried
+    after a skip (a skipped step leaves ``step`` where it was, as the JAX
+    package's ``fold_in(dropout_rng, state.step)`` does)."""
+
+    def __init__(self, seed: torch.Tensor, step: torch.Tensor, stream: int = 0):
+        self.seed, self.step, self.stream = seed, step, stream
+        self.count = 1  # Dropout modules under this key (dropout_rng sets it)
+        self._multipliers: Optional[torch.Tensor] = None
+
+    def fork(self, index: int) -> "DropoutKey":
+        """Stream ``index`` of this key (a tile's own masks)."""
+        key = DropoutKey(self.seed, self.step, (self.stream * 0x9E3779B1 + index + 1) & _M32)
+        key.count = self.count
+        return key
+
+    def multiplier(self, index: int) -> torch.Tensor:
+        """Module ``index``'s odd 31-bit multiplier, a 0-d int64 tensor; all
+        ``count`` of them are hashed at the first call of a forward."""
+        if self._multipliers is None:
+            seed = self.seed.to(torch.int64)
+            base = _mix32(_mix32(((seed ^ (seed >> 32)) & _M32) ^ 0x5BD1E995)
+                          ^ (self.step.to(torch.int64) & _M32))
+            idx = torch.arange(self.count, dtype=torch.int64, device=base.device)
+            mods = _mix32(((idx * _MUL[2]) & _M32) ^ self.stream)
+            self._multipliers = (_mix32(mods ^ base) & 0x7FFFFFFF) | 1
+        return self._multipliers[index]
+
+    def keep(self, index: int, shape, keep_prob: float, device) -> torch.Tensor:
+        """The keep mask (uniform < keep_prob) of module ``index`` for a
+        tensor of ``shape``: bool, on ``device``."""
+        numel = math.prod(shape)
+        if numel >= 2 ** 32:
+            raise ValueError(f"dropout over {numel} elements: the hash counts below 2**32")
+        idx = torch.arange(1, numel + 1, dtype=torch.int64, device=device)
+        h = _mix32((idx * self.multiplier(index)) & _M32)
+        return (h < int(keep_prob * 2 ** 32)).reshape(shape)
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in train mode keep each element with
-    probability 1 - p (uniform < 1 - p) and scale kept ones by 1 / (1 - p);
-    identity in eval mode or at p = 0. The mask comes from the module's
-    ``generator``, which :func:`dropout_rng` sets, never from torch's
-    global one, so a step is reproducible from its seed alone; without one
-    a train-mode call raises."""
+    probability 1 - p and scale kept ones by 1 / (1 - p); identity in eval
+    mode or at p = 0. The mask comes from the module's ``key`` (a
+    :class:`DropoutKey`, set by :func:`dropout_rng`) and its ``index``
+    among the model's dropouts, never from torch's global generator; a
+    train-mode call without a key raises."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
-        self.generator: Optional[torch.Generator] = None
+        self.key: Optional[DropoutKey] = None
+        self.index = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        if self.generator is None:
-            raise RuntimeError("train-mode dropout draws from an explicit generator: "
-                               "run the forward under layers.dropout_rng(model, generator)")
+        if self.key is None:
+            raise RuntimeError("train-mode dropout draws from an explicit key: "
+                               "run the forward under layers.dropout_rng(model, key)")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        keep = self.key.keep(self.index, x.shape, keep_prob, x.device)
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @contextlib.contextmanager
-def dropout_rng(model: nn.Module, generator: torch.Generator):
-    """Inside the block, every :class:`Dropout` of ``model`` draws its
-    train-mode masks from ``generator`` (on the device of the
-    activations): the counterpart of flax's ``rngs={"dropout": key}``."""
+def dropout_rng(model: nn.Module, key: DropoutKey):
+    """Inside the block, every :class:`Dropout` of ``model`` (numbered in
+    module order) draws its train-mode masks from ``key``: the counterpart
+    of flax's ``rngs={"dropout": key}``."""
     drops = [m for m in model.modules() if isinstance(m, Dropout)]
-    for d in drops:
-        d.generator = generator
+    key.count = max(1, len(drops))
+    for i, d in enumerate(drops):
+        d.key, d.index = key, i
     try:
-        yield generator
+        yield key
     finally:
         for d in drops:
-            d.generator = None
+            d.key = None
 
 
 class MLP(nn.Module):

@@ -11,12 +11,10 @@ same complex.
 The JAX package's ``nn.scan`` over tile indices is a Python loop here, in
 row-major order (tile ``idx`` is ``(idx // n2, idx % n2)``). The decoder's
 parameters are shared by every tile; in train mode each tile's dropout
-draws from its own generator, forked from the step's by the tile index.
+draws from its own stream of the step's key, forked by the tile index.
 """
 
 from __future__ import annotations
-
-import hashlib
 
 import torch
 from torch import nn
@@ -35,13 +33,6 @@ def tile_grid(l1: int, l2: int, tile: int) -> tuple:
     return l1 // tile, l2 // tile
 
 
-def fork_generator(gen: torch.Generator, index: int) -> torch.Generator:
-    """A generator on ``gen``'s device seeded from ``gen``'s seed and
-    ``index`` alone: tile ``index``'s dropout stream."""
-    digest = hashlib.sha256(f"tile:{gen.initial_seed()}:{index}".encode()).digest()
-    return torch.Generator(device=gen.device).manual_seed(int.from_bytes(digest[:8], "little"))
-
-
 def tiled_decode(decoder: nn.Module, feats1: torch.Tensor, feats2: torch.Tensor,
                  mask1: torch.Tensor, mask2: torch.Tensor, tile: int,
                  stem: str = "factorized") -> torch.Tensor:
@@ -57,7 +48,7 @@ def tiled_decode(decoder: nn.Module, feats1: torch.Tensor, feats2: torch.Tensor,
     l2 = feats2.shape[1]
     n1, n2 = tile_grid(l1, l2, tile)
     drops = [m for m in decoder.modules() if isinstance(m, Dropout)]
-    step_gen = drops[0].generator if drops else None
+    step_key = drops[0].key if drops else None
     tiles = []
     try:
         for idx in range(n1 * n2):
@@ -68,13 +59,14 @@ def tiled_decode(decoder: nn.Module, feats1: torch.Tensor, feats2: torch.Tensor,
             pm = m1[:, :, None] & m2[:, None, :]
             pair = (PairFactors(f1, f2, m1, m2) if stem == "factorized"
                     else interaction_tensor(f1, f2))
-            if step_gen is not None:
+            if step_key is not None:
+                tile_key = step_key.fork(idx)
                 for d in drops:
-                    d.generator = fork_generator(step_gen, idx)
+                    d.key = tile_key
             tiles.append(decoder(pair, pm))
     finally:
         for d in drops:
-            d.generator = step_gen
+            d.key = step_key
     k = tiles[0].shape[-1]
     out = torch.stack(tiles).reshape(n1, n2, b, tile, tile, k)
     return out.permute(2, 0, 3, 1, 4, 5).reshape(b, l1, l2, k)

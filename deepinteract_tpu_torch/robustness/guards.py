@@ -6,7 +6,10 @@ One NaN loss or gradient would poison every parameter at the next
 optimizer update; the guard skips that update instead and counts
 consecutive skips, and the trainer aborts with
 :class:`NonFiniteTrainingError` once the count reaches its limit, after
-writing a diagnostics JSON (:func:`dump_diagnostics`).
+writing a diagnostics JSON (:func:`dump_diagnostics`). The decision and
+the counters stay on the device (``torch.where`` in place of the JAX
+package's ``lax.cond``), so a guarded step can be captured in a CUDA
+graph; the trainer reads the counter with the step's other metrics.
 """
 
 from __future__ import annotations
@@ -18,7 +21,6 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from deepinteract_tpu_torch.training.optim import global_norm
 
 
 class NonFiniteTrainingError(RuntimeError):
@@ -31,30 +33,31 @@ class NonFiniteTrainingError(RuntimeError):
         self.diagnostics_path = diagnostics_path
 
 
-def step_is_finite(loss: torch.Tensor, grads: Sequence[torch.Tensor]) -> bool:
-    """True iff ``loss`` and every gradient entry are finite (a NaN or inf
-    anywhere makes the global norm non-finite)."""
-    return bool(torch.isfinite(loss) & torch.isfinite(global_norm(grads)))
+def step_is_finite(loss: torch.Tensor, grad_norm: torch.Tensor) -> torch.Tensor:
+    """A bool 0-d tensor on the loss's device, true iff ``loss`` and the
+    global gradient norm are finite (a NaN or inf in any gradient makes
+    the norm non-finite). No host read."""
+    return torch.isfinite(loss) & torch.isfinite(grad_norm)
 
 
-def apply_guarded_update(state, loss: torch.Tensor, grads: Sequence[torch.Tensor],
-                         buffers_before: Dict[str, torch.Tensor]) -> bool:
-    """Apply the optimizer update only when the step is finite; returns
-    whether it was. A bad step leaves the parameters, the optimizer, the
-    step counter and the batch statistics (restored from
-    ``buffers_before``: a NaN batch may have poisoned them in the forward)
-    as they were, and adds one to ``state.bad_steps``; a good step resets
-    it to 0."""
-    finite = step_is_finite(loss, grads)
-    if finite:
-        state.optimizer.update()
-        state.step += 1
-        state.bad_steps = 0
-    else:
-        with torch.no_grad():
-            for name, buf in state.model.named_buffers():
-                buf.copy_(buffers_before[name])
-        state.bad_steps += 1
+@torch.no_grad()
+def apply_guarded_update(state, loss: torch.Tensor, grad_norm: torch.Tensor,
+                         buffers: Sequence[torch.Tensor],
+                         buffers_before: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Apply the optimizer update only where the step is finite, on the
+    device: returns the flag (bool 0-d). A bad step leaves the parameters,
+    the optimizer, the step counter and the batch statistics (``buffers``,
+    restored from the static copies ``buffers_before``: a NaN batch may
+    have poisoned them in the forward) as they were, and adds one to
+    ``state.bad_steps_t``; a good step resets it to 0. Every choice is a
+    ``torch.where`` on the flag: nothing is read on the host."""
+    finite = step_is_finite(loss, grad_norm)
+    state.optimizer.apply_update(finite)
+    state.step_t.add_(finite.to(torch.int64))
+    state.bad_steps_t.copy_(torch.where(finite, torch.zeros_like(state.bad_steps_t),
+                                        state.bad_steps_t + 1))
+    for buf, before in zip(buffers, buffers_before):
+        buf.copy_(torch.where(finite, buf, before))
     return finite
 
 

@@ -10,17 +10,26 @@ min_delta 5e-6, mode 'min' iff the name contains 'ce').
 
 Dispatch: consecutive same-shape batches form runs of up to
 ``steps_per_dispatch`` K (:func:`_shape_runs`). A run of exactly K
-batches is one dispatch: one placement, K eager train steps, then its
-metrics logged in plan order (loss ledger, skipped steps, heartbeat,
-``log_every`` lines, the ``max_bad_steps`` abort), as the JAX loop's
-scanned dispatch does; a shorter run (a remainder, a shape change, K = 1)
-is dispatched batch by batch. The preemption poll, the mid-epoch save
-check (position = batches dispatched), the profile tick and the ``step``
-span happen once per dispatch. The JAX loop defers a scanned dispatch's
-metric fetch behind the next dispatch; the port's steps read their loss
-on the host already, so a run's metrics are logged right after it.
-Evaluation groups same-shape runs of ``eval_batches_per_dispatch`` and
-copies each run's outputs to the host once.
+batches is one dispatch: one placement, then
+:func:`~.steps.multi_train_step`, which on the card replays the key's
+train-step graph K times (``training/step_graphs.py``: one CUDA graph of
+the whole step per bucket key, captured at the key's first dispatch) and
+on the CPU runs the same step body K times. Nothing is read on the host
+inside a run: its [K] metrics are copied to pinned host memory without
+blocking, and read after the next dispatch has been enqueued, as the JAX
+loop defers its scanned dispatch's fetch; then they are logged in plan
+order (loss ledger, skipped steps, heartbeat, ``log_every`` lines, the
+``max_bad_steps`` abort, which therefore lands one dispatch late, as in
+JAX). A mid-epoch save, the end of the epoch, a preemption and any other
+exception flush the pending run first. A shorter run (a remainder, a
+shape change, K = 1) is dispatched batch by batch, each step a replay of
+the same graph and its metrics read right after it. The preemption poll,
+the mid-epoch save check (position = batches dispatched), the profile
+tick and the ``step`` span happen once per dispatch. Evaluation groups
+same-shape runs of ``eval_batches_per_dispatch``, replays the key's eval
+graph per batch into the run's [K] outputs and copies them to the host
+once. ``LoopConfig.step_graphs=False`` runs the bodies eagerly on the
+card instead (the reference the graphs are checked against).
 
 Placement (``data/pipeline.py``): inline at the dispatch site, or with
 ``device_prefetch`` on the placement thread (pinned memory, a side CUDA
@@ -73,7 +82,7 @@ import torch
 
 from deepinteract_tpu_torch.data.graph import PairedComplex
 from deepinteract_tpu_torch.data.pipeline import BatchPlacement, placed_runs, tensors
-from deepinteract_tpu_torch.models.layers import dropout_rng
+from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.obs import metrics as obs_metrics
 from deepinteract_tpu_torch.obs import spans as obs_spans
@@ -86,8 +95,9 @@ from deepinteract_tpu_torch.training import metrics as M
 from deepinteract_tpu_torch.training.checkpoint import (CheckpointConfig, Checkpointer,
                                                         decode_position, metric_mode)
 from deepinteract_tpu_torch.training.optim import OptimConfig
-from deepinteract_tpu_torch.training.steps import (TrainState, create_train_state,
-                                                   dropout_generator, eval_step, train_step)
+from deepinteract_tpu_torch.training.step_graphs import StepGraphs
+from deepinteract_tpu_torch.training.steps import (TrainState, create_train_state, eval_step,
+                                                   multi_eval_step, multi_train_step)
 from deepinteract_tpu_torch.training.wandb_logger import FanoutWriter, RegistryWriter
 
 DataSource = Union[Sequence[PairedComplex], Callable[[int], Iterable[PairedComplex]]]
@@ -160,6 +170,10 @@ class LoopConfig:
     # stream) while the previous dispatch runs, at most the loader's
     # prefetch depth of runs ahead. Values are unchanged.
     device_prefetch: bool = False
+    # On the card, replay one CUDA graph of the train step and one of the
+    # eval step per bucket key (training/step_graphs.py); False runs the
+    # same step bodies eagerly. Ignored on the CPU, which runs them eagerly.
+    step_graphs: bool = True
 
 
 class EarlyStopping:
@@ -197,6 +211,31 @@ class ResumeCursor:
     skips_used: int = 0
     skipped_steps: int = 0
     losses: List[float] = dataclasses.field(default_factory=list)
+
+
+class _Fetch:
+    """A dispatch's [K] step metrics on their way to the host: on the card
+    a non-blocking copy into pinned memory behind an event, read by
+    :meth:`rows` (the dispatch's one host read, made once the next
+    dispatch is enqueued); on the CPU the values themselves."""
+
+    def __init__(self, metrics: Dict[str, torch.Tensor]):
+        self.names = list(metrics)
+        values = torch.stack(list(metrics.values()), dim=1)
+        self.event = None
+        if values.is_cuda:
+            self.host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+            self.host.copy_(values, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = values
+
+    def rows(self) -> List[Dict[str, float]]:
+        """One metrics dict per step, in order (waits for the copy)."""
+        if self.event is not None:
+            self.event.synchronize()
+        return [dict(zip(self.names, row)) for row in self.host.tolist()]
 
 
 def _iter_data(data: DataSource, epoch: int) -> Iterable[PairedComplex]:
@@ -343,6 +382,18 @@ class Trainer:
         self._placement: Optional[BatchPlacement] = None
         self._prefetch_placement: Optional[BatchPlacement] = None
         self._prefetch_depth = 0
+        # The step graphs of the state being trained (on the card, with
+        # LoopConfig.step_graphs): built at its first dispatch.
+        self._graphs: Optional[StepGraphs] = None
+
+    def step_graphs(self, state: TrainState) -> Optional[StepGraphs]:
+        """The step-graph inventory of ``state`` (a new one for a new
+        state), or None on the CPU or with ``step_graphs`` off."""
+        if not self.cfg.step_graphs or next(state.model.parameters()).device.type != "cuda":
+            return None
+        if self._graphs is None or self._graphs.state is not state:
+            self._graphs = StepGraphs(state, self.cfg.weight_classes, self.cfg.nonfinite_guard)
+        return self._graphs
 
     def _progress(self, **fields) -> None:
         if self._heartbeat is not None:
@@ -366,9 +417,10 @@ class Trainer:
         """The reference metric suite over ``data``, median over complexes
         (``{stage}_ce`` is the mean), with ``stage`` picking the L
         convention. Same-shape runs of ``eval_batches_per_dispatch``
-        batches are evaluated back to back and their probabilities and
-        logits copied to the host at once; each complex's metrics read its
-        own batch's slice. ``csv_path`` writes the per-target top-k CSV."""
+        batches are evaluated back to back (on the card, each a replay of
+        its key's eval graph) and their probabilities and logits copied to
+        the host at once; each complex's metrics read its own batch's
+        slice. ``csv_path`` writes the per-target top-k CSV."""
         per_complex: List[Dict[str, float]] = []
 
         def consume(batch: PairedComplex, probs: np.ndarray, logits: np.ndarray) -> None:
@@ -383,23 +435,22 @@ class Trainer:
                     ce=_complex_ce(logits[b], examples, mask)))
 
         k = max(1, self.cfg.eval_batches_per_dispatch)
+        device = next(state.model.parameters()).device
+        graphs = self.step_graphs(state)
         for run in _shape_runs(_iter_data(data, 0), k):
             self._check_preempt()
             # Eval dispatches are progress too: a long validation must not
             # read as a hung step loop to the supervisor.
             self._progress(phase=f"eval:{stage}")
-            if len(run) < max(k, 2):
-                for batch in run:
-                    out = eval_step(state, batch, self.cfg.weight_classes)
-                    consume(batch, out["probs"].float().cpu().numpy(),
-                            out["logits"].float().cpu().numpy())
-                continue
-            outs = [eval_step(state, batch, self.cfg.weight_classes) for batch in run]
-            # [K, 2, B, L1, L2, 2]: the run's probabilities and logits in one copy.
-            host = torch.stack([torch.stack([o["probs"], o["logits"]]) for o in outs]
-                               ).float().cpu().numpy()
-            for j, batch in enumerate(run):
-                consume(batch, host[j, 0], host[j, 1])
+            groups = [[b] for b in run] if len(run) < max(k, 2) else [run]
+            for group in groups:
+                outs = multi_eval_step(state, [b.to(device) for b in group],
+                                       self.cfg.weight_classes, graphs)
+                # [K, 2, B, L1, L2, 2]: the group's probabilities and logits
+                # in one copy.
+                host = torch.stack([outs["probs"], outs["logits"]], dim=1).float().cpu().numpy()
+                for j, batch in enumerate(group):
+                    consume(batch, host[j, 0], host[j, 1])
         if csv_path:
             names = targets or [f"complex_{i}" for i in range(len(per_complex))]
             M.write_topk_csv(per_complex, names, csv_path)
@@ -578,12 +629,32 @@ class Trainer:
         def maybe_midsave() -> None:
             nonlocal since_save
             if save_fn is not None and 0 < cfg.save_every_steps <= since_save:
+                flush()  # the cursor's loss ledger covers every saved step
                 save_fn(state, step_idx)
                 since_save = 0
 
-        def step(batch: PairedComplex) -> Dict[str, float]:
-            self.steps_run += 1
-            return train_step(state, batch, cfg.weight_classes, guard=cfg.nonfinite_guard)
+        graphs = self.step_graphs(state)
+        guard = cfg.nonfinite_guard
+
+        def dispatch(batches: List[PairedComplex]) -> _Fetch:
+            """K steps (graph replays on the card) and the start of their
+            metrics' copy to the host; nothing waits here."""
+            self.steps_run += len(batches)
+            return _Fetch(multi_train_step(state, batches, cfg.weight_classes, guard, graphs))
+
+        pending: Optional[_Fetch] = None  # the last full run, read after the next dispatch
+
+        def flush() -> None:
+            nonlocal pending
+            if pending is None:
+                return
+            fetch, pending = pending, None
+            # The read blocks until the run's steps are done: device time.
+            t0 = time.perf_counter()
+            rows = fetch.rows()
+            stats["device_s"] += time.perf_counter() - t0
+            for m in rows:
+                log_step(m)
 
         if self._placement is None:  # outside fit
             self._install_device_prefetch(data, device)
@@ -614,8 +685,10 @@ class Trainer:
                 else:
                     per_batch = len(run) < max(k, 2)
                 if per_batch:
+                    flush()
                     for j, host_batch in enumerate(run):
-                        # Each batch is its own dispatch.
+                        # Each batch is its own dispatch, its metrics read
+                        # right after it.
                         self._profile_tick(device)
                         with obs_spans.span("step", step_num=self._dispatch_count, n=1):
                             if pr is not None:
@@ -626,7 +699,8 @@ class Trainer:
                                     batch = placement.place_batch(host_batch)
                                 h2d_s = h2d_span.dur_s
                             with obs_spans.span("device_step") as dev_span:
-                                log_step(step(batch))
+                                (m,) = dispatch([batch]).rows()
+                                log_step(m)
                         stats["h2d_s"] += h2d_s
                         stats["device_s"] += dev_span.dur_s
                         self._dispatch_count += 1
@@ -644,14 +718,18 @@ class Trainer:
                             batches = placement.ready(placement.place_run(run))
                         h2d_s = h2d_span.dur_s
                     with obs_spans.span("device_step") as dev_span:
-                        run_metrics = [step(batch) for batch in batches]
+                        fetch = dispatch(batches)
                 stats["h2d_s"] += h2d_s
                 stats["device_s"] += dev_span.dur_s
-                for m in run_metrics:
-                    log_step(m)
+                flush()  # the previous run's metrics, after this run is enqueued
+                pending = fetch
                 self._dispatch_count += 1
                 since_save += len(run)
                 maybe_midsave()
+            flush()
+        except BaseException:
+            flush()  # the pending run's steps are in the state: log them
+            raise
         finally:
             # Stops the placement and loader threads on every exit path.
             run_iter.close()
@@ -902,7 +980,7 @@ class Trainer:
         model = state.model
         device = next(model.parameters()).device
         model.train()
-        with dropout_rng(model, dropout_generator(state.seed, state.step, device)):
+        with dropout_rng(model, DropoutKey(state.seed_t, state.step_t)):
             for batch in _iter_data(data, 0):
                 batch = batch.to(device)
                 model(batch.graph1, batch.graph2)

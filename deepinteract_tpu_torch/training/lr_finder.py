@@ -16,7 +16,7 @@ import dataclasses
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
-from torch.optim.lr_scheduler import LambdaLR
+import torch
 
 from deepinteract_tpu_torch.data.graph import PairedComplex
 from deepinteract_tpu_torch.models.model import DeepInteract
@@ -34,14 +34,15 @@ def lr_find(model: DeepInteract, data: Iterable[PairedComplex],
     without accumulation."""
     cfg = dataclasses.replace(optim_cfg or OptimConfig(), lr=min_lr, accumulate_steps=1)
     ratio = max_lr / min_lr
+    span = max(num_steps - 1, 1)
     state = create_train_state(copy.deepcopy(model), seed, cfg)
-    opt = state.optimizer
-    opt.schedule = LambdaLR(opt.adamw, lambda step: ratio ** (step / max(num_steps - 1, 1)))
+    # The sweep replaces the schedule: AdamW's count -> rate, on the device.
+    state.optimizer.lr_at = lambda count: min_lr * ratio ** (count.to(torch.float32) / span)
     batches = list(data)
     history: List[Tuple[float, float]] = []
     best = np.inf
     for i in range(num_steps):
-        lr = opt.adamw.param_groups[0]["lr"]
+        lr = min_lr * ratio ** (i / span)
         loss = train_step(state, batches[i % len(batches)], weight_classes)["loss"]
         history.append((lr, loss))
         if np.isfinite(loss):

@@ -24,7 +24,9 @@ def _weighted_ce(logits, labels, mask, weight_classes: bool, class_weights) -> t
     ll = torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None].long())[..., 0]
     w = mask.to(logits.dtype)
     if weight_classes:
-        w = torch.tensor(class_weights, dtype=logits.dtype, device=logits.device)[labels.long()] * w
+        # A select, not an index into a tensor built from the tuple: that
+        # would copy from the host inside a captured step.
+        w = torch.where(labels.long() == 1, class_weights[1], class_weights[0]).to(w.dtype) * w
     return -(w * ll).sum() / torch.clamp(w.sum(), min=1.0)
 
 

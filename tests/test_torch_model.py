@@ -1,7 +1,8 @@
 """The port's full model and predict entry point against the JAX package:
 the forward on carried weights, the golden fixture's reference logits, the
-split encode/decode, ``cli.predict`` on the CPU, its refusal without a GPU,
-and the rule that the port imports neither jax nor the JAX package."""
+split encode/decode, ``cli.predict`` on the CPU (also with
+``--input_indep``), its refusal without a GPU, and the rule that the port
+imports neither jax nor the JAX package."""
 
 import os
 import subprocess
@@ -124,6 +125,57 @@ def test_predict_cli_on_cpu_matches_jax_softmax(tmp_path):
         assert np.load(out_dir / f"{name}.npy").shape[:2] in ((n, HIDDEN), (n, KNN))
 
 
+def test_predict_cli_input_indep_matches_jax(tmp_path):
+    """``cli.predict --input_indep`` (every input feature zeroed, the
+    reference's control; F8) against the JAX predict path's
+    ``to_paired_complex(raw, input_indep=True)`` on the same npz and
+    weights: the written node and edge representations within 1e-4, and
+    the contact map within 1e-4 plus four times the reference's own
+    float32 spread. With every feature zero all nodes of a chain encode
+    alike, so the pair map entering the decoder is constant and its first
+    instance norm divides rounding noise by sqrt(eps) = 1e-3: the control's
+    map is float32 noise in both packages (ROADMAP queue 3)."""
+    from deepinteract_tpu.data.graph import stack_complexes
+    from deepinteract_tpu.data.io import load_complex_npz, to_paired_complex
+
+    raw = jax_random_raw_complex(26, 22, np.random.default_rng(9), knn=KNN)
+    npz = tmp_path / "complex.npz"
+    jax_save_complex_npz(str(npz), raw["graph1"], raw["graph2"], raw["examples"], "c9")
+    batch = stack_complexes([to_paired_complex(load_complex_npz(str(npz)), input_indep=True)])
+    jcfg = jax_cfg(limit=NODE_COUNT_LIMIT)
+    variables = random_variables(jcfg, batch, seed=9)
+    apply = jax.jit(lambda v: JaxDeepInteract(jcfg).apply(
+        v, batch.graph1, batch.graph2, train=False, return_representations=True))
+
+    def probs_of(v):
+        logits, reps = apply(v)
+        return np.asarray(jax.nn.softmax(logits, axis=-1))[0, :26, :22, 1], reps
+
+    ref, reps = probs_of(variables)
+    spread = 0.0
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        moved = jax.tree_util.tree_map(lambda a: np.asarray(a) * (
+            1 + 1e-7 * rng.standard_normal(a.shape)).astype(np.float32), variables["params"])
+        spread = max(spread, float(np.abs(probs_of(dict(variables, params=moved))[0]
+                                          - ref).max()))
+
+    weights = tmp_path / "weights.npz"
+    save_npz(str(weights), variables)
+    out_dir = tmp_path / "out"
+    assert port_predict.main([
+        "--input_npz", str(npz), "--output_dir", str(out_dir), "--weights", str(weights),
+        "--input_indep", "--device", "cpu", "--num_gnn_hidden_channels", str(HIDDEN),
+        "--num_gnn_attention_heads", str(HEADS), "--num_interact_layers", str(CHUNKS),
+        "--num_interact_hidden_channels", str(HIDDEN)]) == 0
+    for name, n in (("graph1_node_feats", 26), ("graph2_edge_feats", 22)):
+        np.testing.assert_allclose(np.load(out_dir / f"{name}.npy"),
+                                   np.asarray(reps[name])[0, :n], rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_allclose(np.load(out_dir / "contact_prob_map.npy"), ref, rtol=1e-4,
+                               atol=1e-4 + 4 * spread)
+
+
 def test_predict_refuses_to_run_without_gpu_unless_asked(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the refusal needs one without")
@@ -173,7 +225,8 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "cli.screen", "cli.index", "cli.query", "cli.assemble", "cli.calibrate",
     "serving.fleet", "serving.router", "serving.autoscaler", "serving.worker_stub",
     "obs.expfmt", "data.loader", "data.pipeline", "training.loop", "training.wandb_logger",
-    "cli.train"))
+    "cli.train", "training.steps", "training.optim", "training.step_graphs",
+    "robustness.guards", "models.layers"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -15,7 +15,7 @@ from deepinteract_tpu.training.optim import OptimConfig as JaxOptimConfig
 from deepinteract_tpu.training.optim import cosine_warm_restarts as jax_schedule
 from deepinteract_tpu.training.optim import make_optimizer
 from deepinteract_tpu_torch.training import objective
-from deepinteract_tpu_torch.training.optim import OptimConfig, Optimizer, cosine_warm_restarts
+from deepinteract_tpu_torch.training.optim import OptimConfig, Optimizer, cosine_warm_restarts_lr
 
 LOSS_TOL = dict(rtol=1e-6, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -84,10 +84,14 @@ SCHEDULE = dict(lr=1e-2, weight_decay=1e-2, grad_clip_norm=0.5, t0_epochs=2,
 def test_schedule_matches_optax_over_restarts():
     cfg = SCHEDULE
     ref = jax_schedule(JaxOptimConfig(**cfg))
-    ours = cosine_warm_restarts(OptimConfig(**cfg))
+    lr = cosine_warm_restarts_lr(OptimConfig(**cfg))
+
+    def ours(step):
+        return lr(torch.tensor(step)).item()
+
     for step in range(20):
-        np.testing.assert_allclose(cfg["lr"] * ours(step), float(ref(step)), rtol=1e-6)
-    assert ours(0) == 1.0 and ours(6) == 1.0 and ours(12) == 1.0
+        np.testing.assert_allclose(ours(step), float(ref(step)), rtol=1e-6)
+    assert ours(0) == ours(6) == ours(12) == np.float32(cfg["lr"])
 
 
 @pytest.mark.parametrize("accumulate_steps,frozen", [(1, ()), (2, ()), (1, ("decoder",))],

@@ -136,7 +136,7 @@ def test_remat_step_equals_the_plain_step_bitwise_with_dropout(name, monkeypatch
 
     def counted(self, x):
         if self.training and self.p:
-            draws.append(self.generator.initial_seed())
+            draws.append(self.key.stream)
         return forward(self, x)
 
     monkeypatch.setattr(layers.Dropout, "forward", counted)
@@ -149,9 +149,9 @@ def test_remat_step_equals_the_plain_step_bitwise_with_dropout(name, monkeypatch
     # The same draws in the same order: none while a block is recomputed.
     assert draws == plain_draws
     if name.startswith("tiled"):
-        # 2 x 2 tiles, each its own generator, drawn by the two regional
-        # attentions once each.
-        tiles = [seed for seed in draws if seed != draws[0]]
+        # 2 x 2 tiles, each its own stream of the step's key, drawn by the
+        # two regional attentions once each.
+        tiles = [stream for stream in draws if stream != draws[0]]
         assert len(set(tiles)) == 4 and all(tiles.count(s) == 2 for s in set(tiles))
 
 

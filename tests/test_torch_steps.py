@@ -1,7 +1,7 @@
 """One port ``train_step`` against the JAX package's from shared weights
 (training/steps.py): the loss, every gradient, the updated batch
 statistics and the pre-clip gradient norm; the non-finite guard; and the
-dropout generator's seeding by (seed, step)."""
+dropout key's dependence on (seed, step)."""
 
 import dataclasses
 import functools
@@ -16,8 +16,8 @@ import torch
 from deepinteract_tpu.models.model import DeepInteract as JaxDeepInteract
 from deepinteract_tpu.training.steps import loss_and_updates
 from deepinteract_tpu_torch.models.model import DeepInteract
-from deepinteract_tpu_torch.training.steps import (create_train_state, dropout_generator,
-                                                   eval_step, train_step)
+from deepinteract_tpu_torch.models.layers import DropoutKey
+from deepinteract_tpu_torch.training.steps import create_train_state, eval_step, train_step
 from deepinteract_tpu_torch.weights import load_jax_variables
 from torch_port_helpers import complexes, jax_cfg, port_cfg, random_variables
 
@@ -130,17 +130,19 @@ def test_guard_skips_a_non_finite_step(shared):
 
 def test_dropout_is_seeded_by_seed_and_step(shared):
     """Two states with the same weights and seed take identical steps; the
-    next step's masks differ from the first's."""
+    next step's masks differ from the first's, and so do another seed's."""
     _, cx, variables = shared
     losses = []
     for _ in range(2):
         state = create_train_state(_port_model(variables, dropout_rate=0.2), seed=5)
         losses.append(train_step(state, cx)["loss"])
     assert losses[0] == losses[1]
-    a = torch.rand(1000, generator=dropout_generator(5, 0, "cpu"))
-    b = torch.rand(1000, generator=dropout_generator(5, 1, "cpu"))
-    c = torch.rand(1000, generator=dropout_generator(6, 0, "cpu"))
-    assert torch.equal(a, torch.rand(1000, generator=dropout_generator(5, 0, "cpu")))
+
+    def mask(seed, step):
+        return DropoutKey(torch.tensor(seed), torch.tensor(step)).keep(0, (1000,), 0.8, "cpu")
+
+    a, b, c = mask(5, 0), mask(5, 1), mask(6, 0)
+    assert torch.equal(a, mask(5, 0))
     assert not torch.equal(a, b) and not torch.equal(a, c)
     # Same weights, step 1 instead of step 0: other masks, another loss.
     state = create_train_state(_port_model(variables, dropout_rate=0.2), seed=5)

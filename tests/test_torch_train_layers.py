@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from deepinteract_tpu.models import layers as jax_layers
-from deepinteract_tpu_torch.models.layers import Dropout, MaskedBatchNorm, ResBlock, dropout_rng
+from deepinteract_tpu_torch.models.layers import (Dropout, DropoutKey, MaskedBatchNorm, ResBlock,
+                                                  dropout_rng)
 from deepinteract_tpu_torch.weights import load_jax_variables
 from torch_port_helpers import random_like
 
@@ -110,19 +111,26 @@ def test_resblock_train_updates_its_one_norm_three_times():
 
 
 def test_dropout_draws_from_the_explicit_generator():
+    """Train-mode dropout draws from the key ``dropout_rng`` sets (a
+    ``DropoutKey`` of seed and step), never from torch's generators: the
+    same key gives the same mask, another seed another."""
     x = torch.ones(64, 32)
     drop = Dropout(0.25)
     assert torch.equal(drop.eval()(x), x) and torch.equal(Dropout(0.0).train()(x), x)
     drop.train()
     with pytest.raises(RuntimeError, match="dropout_rng"):
         drop(x)
-    with dropout_rng(drop, torch.Generator().manual_seed(3)):
+
+    def key(seed):
+        return DropoutKey(torch.tensor(seed), torch.tensor(0))
+
+    with dropout_rng(drop, key(3)):
         a = drop(x)
-    with dropout_rng(drop, torch.Generator().manual_seed(3)):
+    with dropout_rng(drop, key(3)):
         b = drop(x)
-    with dropout_rng(drop, torch.Generator().manual_seed(4)):
+    with dropout_rng(drop, key(4)):
         c = drop(x)
-    assert drop.generator is None  # set only inside the block
+    assert drop.key is None  # set only inside the block
     assert torch.equal(a, b) and not torch.equal(a, c)
     # flax's rule: kept elements are scaled by 1 / (1 - p), the rest are 0.
     assert torch.equal(torch.unique(a), torch.tensor([0.0, 1.0 / 0.75]))
