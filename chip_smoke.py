@@ -174,8 +174,27 @@ Phases, in order; any failure exits non-zero:
      memory with every key captured; then DeepLab, the GCN encoder,
      regional attention and two-tile decoding with ``--remat``: a graphed
      run of 2 against two eager steps, bitwise.
-The line before the last is the card's name and power limit; before it, a
-``{"kernels": [...]}`` JSON line, before that phase 12's ``{"dispatch":
+ 14. the featurization front end, on PDB files written in a temporary
+     directory (helices of 180 and 140 residues cycling through the 20
+     standard residues with side-chain atoms, whose side chains touch; a
+     bound two-chain file; four small pairs) with ``DI_HHBLITS_*`` unset
+     (the zero sequence profile): the port's ``geomfeats`` library built
+     with the host's C++ compiler and required, each native geometry
+     kernel against its numpy version (rtol 1e-4, atol 1e-3); featurize
+     ms per chain; ``cli.predict --left_pdb --right_pdb --save_npz`` at the
+     flagship width (4, 0, 2 launches) with a finite 180x140 map, bitwise
+     equal to ``cli.predict --input_npz`` on the saved npz; the wall from
+     PDB files to map; a JSON ``{"left_pdb", "right_pdb"}`` POST to an
+     engine's ``ServingServer`` against ``predict_complex`` (1e-6), (4, 0,
+     2) at its capture; ``cli.build_dataset`` over the four pairs,
+     ``cli.analyze stats`` and ``lengths``, and a ``BucketedLoader`` pass
+     over the tree. At most 60 s.
+A phase that fails prints ``chip_smoke: phase <n> failed: <reason>`` on
+stdout and the run exits 1; a watchdog ends a run still going after
+``SCRIPT_LIMIT_S`` the same way. The line before the last is the card's
+name and power limit; before it, a ``{"kernels": [...]}`` JSON line,
+before that phase 14's ``{"frontend": {...}}`` summary, before that
+phase 12's ``{"dispatch":
 {...}}`` summary, before that phase 13's ``{"step_graphs": {...}}`` one,
 before that phase 11's ``{"fleet": {...}}`` summary,
 before that phase 10's ``{"screening": {...}}`` one,
@@ -202,6 +221,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -273,6 +293,58 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+# The whole run is held to this limit, just inside the 1200 s that a smoke
+# run is given: past it the run stops and names the phase it was in,
+# rather than being cut without a word.
+SCRIPT_LIMIT_S = 1180.0
+_current_phase = ["start"]
+
+
+@contextlib.contextmanager
+def phase(n: str):
+    """Run one phase of ``main``. Its failure prints ``chip_smoke: phase
+    <n> failed: <exception>`` on stdout (a traceback on stderr for an
+    exception other than a failed check) and exits 1."""
+    _current_phase[0] = n
+    try:
+        yield
+    except KeyboardInterrupt:
+        raise
+    except BaseException as exc:  # noqa: BLE001 - reported, then the run exits 1
+        if isinstance(exc, SystemExit):
+            what = str(exc.code)
+        else:
+            what = f"{type(exc).__name__}: {exc}"
+            traceback.print_exc()
+        print(f"chip_smoke: phase {n} failed: {what}", flush=True)
+        raise SystemExit(1) from exc
+
+
+def _child_pids(pid: int) -> list:
+    """Every descendant of ``pid``, read from /proc."""
+    out = []
+    for task in os.listdir(f"/proc/{pid}/task"):
+        try:
+            with open(f"/proc/{pid}/task/{task}/children") as f:
+                kids = [int(k) for k in f.read().split()]
+        except OSError:
+            continue
+        for kid in kids:
+            out += [kid] + _child_pids(kid)
+    return out
+
+
+def _overrun() -> None:
+    """The watchdog's end of a run past ``SCRIPT_LIMIT_S``: name the phase,
+    stop the processes this run started, exit 1."""
+    print(f"chip_smoke: phase {_current_phase[0]} failed: the run passed its "
+          f"{SCRIPT_LIMIT_S:.0f} s limit", flush=True)
+    for pid in _child_pids(os.getpid()):
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    os._exit(1)
 
 
 def nvidia_smi_line() -> str:
@@ -1732,8 +1804,8 @@ def run_supervisor(seed, flags=(), hang_timeout_s=HANG_TIMEOUT_S) -> dict:
 SERVE_WARMUP = ((128, 128, 1), (256, 192, 1), (64, 256, 1), (256, 192, 4),
                 TILED_COMPLEX + (1,))
 # Timed requests per bucket (the tiled key's too), each side: 10, cut to 5
-# with the step-graph phase.
-SERVE_RUNS = 5
+# with the step-graph phase and to 3 with the front-end phase.
+SERVE_RUNS = 3
 
 
 def _served_batch(engine, raws):
@@ -2145,7 +2217,7 @@ SCREEN_SEED_OFFSET = 1
 SCREEN_BATCH = 4  # --screen_batch: chains per encode, pairs per decode
 SCREEN_PREEMPT_AT = 5  # decode batches before the guard is requested
 SCREEN_NAIVE_PAIRS = 16  # pairs also timed through engine.predict
-SCREEN_TIME_RUNS = 3  # CUDA-event repeats per split-phase graph (5 before the step-graph phase)
+SCREEN_TIME_RUNS = 2  # CUDA-event repeats per split-phase graph (5, 3 before the front end)
 ENCODE_COUNTS = (2, 0, 1)  # (K1, K2, CSR builds) per encode capture: 2 GT layers, 1 CSR
 # An item decoded in a batch (or from embeddings encoded in one) against the
 # same item alone: phase 9's bar for a slot of a coalesced batch.
@@ -2509,7 +2581,7 @@ FLEET_WARMUP = "128x128x1,256x192x1"  # the engine workers' warm-up keys
 FLEET_COUNTS = (4, 0, 2)  # (K1, K2, CSR builds) per flagship capture in a worker
 FLEET_LOAD_THREADS = 16  # concurrent /predict clients under the SIGKILL
 ROLLOVER_LOAD_THREADS = 8  # and under the rollover
-FLEET_TIME_RUNS = 5  # routed and direct requests per bucket (10 before the step-graph phase)
+FLEET_TIME_RUNS = 3  # routed and direct requests per bucket (10, 5 before the front end)
 # --fleet_warm_timeout_s: the aborted rollover waits it out. A rollover of
 # two flagship workers under 16 clients took 24.3 s (PR 9's first run).
 FLEET_WARM_TIMEOUT_S = 32.0
@@ -3611,6 +3683,310 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
             "peak_gib": peak, "configs": configs, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the featurization front end (two PDB files -> contact map)
+# ---------------------------------------------------------------------------
+
+FRONTEND_CHAINS = (180, 140)  # the PDB pair predicted and served: buckets 192 / 192
+FRONTEND_OFFSET = 11.0  # A between two helix axes: their side chains touch
+FRONTEND_BOUND = (90, 80)  # the bound two-chain file
+FRONTEND_BUILDER = ((40, 36), (52, 44), (60, 48), (34, 45))  # cli.build_dataset's pairs
+FRONTEND_TIMED_RUNS = 3  # PDB files -> map in process, median of
+FRONTEND_LIMIT_S = 60.0
+NATIVE_BAR = dict(rtol=1e-4, atol=1e-3)  # native vs numpy: the JAX tests/test_pipeline.py
+# Heavy side-chain atoms of the 20 standard residues (PDB names).
+SIDE_CHAINS = {
+    "ALA": ("CB",), "GLY": (), "SER": ("CB", "OG"), "CYS": ("CB", "SG"),
+    "VAL": ("CB", "CG1", "CG2"), "THR": ("CB", "OG1", "CG2"),
+    "LEU": ("CB", "CG", "CD1", "CD2"), "ILE": ("CB", "CG1", "CG2", "CD1"),
+    "MET": ("CB", "CG", "SD", "CE"), "PRO": ("CB", "CG", "CD"),
+    "PHE": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ"),
+    "TYR": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ", "OH"),
+    "TRP": ("CB", "CG", "CD1", "CD2", "NE1", "CE2", "CE3", "CZ2", "CZ3", "CH2"),
+    "ASP": ("CB", "CG", "OD1", "OD2"), "GLU": ("CB", "CG", "CD", "OE1", "OE2"),
+    "ASN": ("CB", "CG", "OD1", "ND2"), "GLN": ("CB", "CG", "CD", "OE1", "NE2"),
+    "LYS": ("CB", "CG", "CD", "CE", "NZ"), "ARG": ("CB", "CG", "CD", "NE", "CZ", "NH1", "NH2"),
+    "HIS": ("CB", "CG", "ND1", "CD2", "CE1", "NE2"),
+}
+
+
+def pdb_chain_lines(n_res, chain, x0=0.0, first=0, serial=1) -> list:
+    """ATOM records of an alpha helix of ``n_res`` residues (100 degrees and
+    1.5 A a residue, axis along z through (x0, 0)) cycling through the 20
+    standard residues from type ``first``, side chains pointing away from
+    the axis."""
+    resnames = list(SIDE_CHAINS)
+    backbone = {"N": (1.56, -0.48, -0.60), "CA": (2.28, 0.0, 0.0), "C": (1.68, 0.50, 0.65),
+                "O": (2.00, 0.70, 1.80)}
+    lines = []
+    for i in range(n_res):
+        resname = resnames[(first + i) % len(resnames)]
+        phi0, z0 = math.radians(100.0) * i, 1.5 * i
+        atoms = [(name, r, phi0 + dphi, z0 + dz) for name, (r, dphi, dz) in backbone.items()]
+        atoms += [(name, 3.3 + 1.1 * k, phi0 - 0.2 + 0.3 * (k % 3 - 1), z0 - 0.5 + 0.4 * (k % 2))
+                  for k, name in enumerate(SIDE_CHAINS[resname])]
+        for name, r, phi, z in atoms:
+            x, y = x0 + r * math.cos(phi), r * math.sin(phi)
+            lines.append(f"ATOM  {serial:5d} {name:<4s} {resname} {chain}{i + 1:4d}    "
+                         f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          {name[0]:>2s}")
+            serial += 1
+    return lines
+
+
+def write_pdb_file(path, *chains) -> str:
+    """A PDB file of one or more helices, each ``(n_res, chain id, x0,
+    first residue type)``."""
+    lines = []
+    for n_res, chain, x0, first in chains:
+        lines += pdb_chain_lines(n_res, chain, x0, first, serial=len(lines) + 1) + ["TER"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\nEND\n")
+    return path
+
+
+def check_native_features(chains) -> dict:
+    """Each native geometry kernel against its numpy version on the parsed
+    chains (the JAX package's bar): max |diff| per kernel."""
+    from deepinteract_tpu_torch.pipeline import native
+    from deepinteract_tpu_torch.pipeline import residue_features as rf
+
+    def cross_numpy(a, b):
+        full = np.sqrt(np.maximum(np.sum((a.coords[:, None] - b.coords[None]) ** 2, -1), 0.0))
+        d = np.minimum.reduceat(full, a.atom_start[:-1], axis=0)
+        return np.minimum.reduceat(d, b.atom_start[:-1], axis=1)
+
+    a, b = chains
+    cases = [("cross_min_dist", native.cross_min_dist_matrix(a.coords, a.atom_start, b.coords,
+                                                              b.atom_start), cross_numpy(a, b))]
+    for ch in chains:
+        radii = rf.atom_radii(ch.elements)
+        sasa, depth = native.sasa_and_depth(ch.coords, radii, rf.N_SPHERE, rf.PROBE_RADIUS)
+        sasa_np, depth_np = rf._sasa_and_depth_numpy(ch.coords, radii)
+        cases += [("sasa", sasa, sasa_np), ("depth", depth, depth_np),
+                  ("min_dist", native.min_dist_matrix(ch.coords, ch.atom_start),
+                   rf._min_dist_matrix_numpy(ch.coords, ch.atom_start)),
+                  ("protrusion_cx", native.protrusion_cx(ch.coords, rf.CX_SPHERE_RADIUS,
+                                                         rf.CX_ATOM_VOLUME),
+                   rf._protrusion_cx_numpy(ch.coords))]
+    out = {}
+    for name, got, want in cases:
+        err = float(np.abs(got - want).max())
+        check(got.shape == want.shape and np.allclose(got, want, **NATIVE_BAR),
+              f"native {name} vs numpy: max |diff| {err:.3g} (rtol 1e-4, atol 1e-3)")
+        out[name] = max(out.get(name, 0.0), err)
+    return out
+
+
+def serve_pdb_pair(engine, left, right, device) -> dict:
+    """``ServingServer`` on a free port: a JSON ``{"left_pdb", "right_pdb"}``
+    POST (featurized on the server) against ``predict_complex`` on the
+    featurized pair (1e-6), a second (warm) request timed, then a drain."""
+    from deepinteract_tpu_torch.pipeline.pair import convert_pdb_pair_to_complex
+    from deepinteract_tpu_torch.robustness.preemption import PreemptionGuard
+    from deepinteract_tpu_torch.serving import ServingServer
+
+    server = ServingServer(engine, port=0)
+    guard = PreemptionGuard(log=lambda s: None)  # flag-only off the main thread
+    rc = {}
+    runner = threading.Thread(target=lambda: rc.setdefault("rc", server.run(guard=guard)))
+    runner.start()
+    try:
+        t_end = time.monotonic() + 10
+        while server._serve_thread is None and time.monotonic() < t_end:
+            time.sleep(0.01)
+        host, port = server.address
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            status, out = _post_json(host, port, "/predict", {"left_pdb": left, "right_pdb": right})
+            walls.append(time.perf_counter() - t0)
+            check(status == 200, f"POST /predict of a PDB pair: status {status}, {str(out)[:300]}")
+        served = np.asarray(out["contact_probs"], dtype=np.float32)
+        ref = predict_complex(convert_pdb_pair_to_complex(left, right, with_labels=False),
+                              engine.model, device)["contact_prob_map"]
+        diff = float(np.abs(served - ref).max()) if served.shape == ref.shape else math.inf
+        check(diff <= 1e-6, f"served PDB pair {served.shape} vs predict_complex {ref.shape}: "
+              f"{diff:.3g} (bar 1e-6)")
+    finally:
+        guard.request("phase 14 done")
+        runner.join(timeout=60)
+    check(not runner.is_alive() and rc.get("rc") == 0, "the PDB server did not drain")
+    return {"served_vs_predict_max": diff, "first_request_s": walls[0],
+            "warm_request_ms": walls[1] * 1e3, "bucket": out["bucket"]}
+
+
+def run_frontend(seed, device, smi) -> dict:
+    """Phase 14: the featurization front end at the flagship width. Inputs
+    are PDB files written here; the native geometry library is built from
+    this checkout and required."""
+    from deepinteract_tpu_torch.cli import analyze as analyze_cli
+    from deepinteract_tpu_torch.cli import build_dataset as build_cli
+    from deepinteract_tpu_torch.pipeline import native
+    from deepinteract_tpu_torch.pipeline.pair import (convert_bound_complex_to_pair,
+                                                      convert_pdb_pair_to_complex,
+                                                      featurize_structure, load_structure)
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    log("== phase 14: featurization front end (PDB files -> cli.predict and a served map, "
+        "flagship width; cli.build_dataset, cli.analyze)")
+    t_phase = time.perf_counter()
+    profile_env = [k for k in ("DI_HHBLITS_BIN", "DI_HHBLITS_DB") if os.environ.get(k)]
+    check(not profile_env, f"{profile_env} set: this phase runs the zero-profile mode")
+    log("  DI_HHBLITS_BIN / DI_HHBLITS_DB unset: the 27 sequence-profile columns are zeros, "
+        "with a warning per chain (the JAX package's mode without hhblits)")
+    cxx = subprocess.run([native.compiler(), "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    native.reset()
+    lib = native.library_path()
+    found = lib.exists()
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    check(ok, f"native geometry library unavailable: {native.disabled_reason()}")
+    log(f"  {cxx}: {lib.relative_to(lib.parents[1])} {'found' if found else 'built'} in "
+        f"{build_s:.3f} s")
+    n1, n2 = FRONTEND_CHAINS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pdb_") as work:
+        left = write_pdb_file(os.path.join(work, "left_u.pdb"), (n1, "A", 0.0, 0))
+        right = write_pdb_file(os.path.join(work, "right_u.pdb"), (n2, "B", FRONTEND_OFFSET, 7))
+        chains = [load_structure(left), load_structure(right)]
+        check([len(c) for c in chains] == [n1, n2], f"parsed {[len(c) for c in chains]} residues")
+        native_errs = check_native_features(chains)
+        log(f"  native vs numpy geometry ({sum(c.num_atoms for c in chains)} atoms): max |diff| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in native_errs.items())
+            + " (rtol 1e-4, atol 1e-3)")
+        feat_ms = {}
+        for c in chains:
+            t0 = time.perf_counter()
+            g = featurize_structure(c, rng=np.random.default_rng(seed))
+            feat_ms[len(c)] = (time.perf_counter() - t0) * 1e3
+            check(g["node_feats"].shape == (len(c), constants.NUM_NODE_FEATS)
+                  and all(np.isfinite(v).all() for v in g.values()),
+                  f"featurized chain of {len(c)}: not finite or not 113 wide")
+        braw = convert_bound_complex_to_pair(
+            write_pdb_file(os.path.join(work, "bound.pdb"), (FRONTEND_BOUND[0], "A", 0.0, 3),
+                           (FRONTEND_BOUND[1], "B", FRONTEND_OFFSET, 11)), "A", "B")
+        bound_contacts = int(braw["examples"][:, 2].sum())
+        check(braw["examples"].shape[0] == FRONTEND_BOUND[0] * FRONTEND_BOUND[1]
+              and bound_contacts > 0, f"bound complex: {bound_contacts} contacts")
+        log(f"  featurize (host, native): {', '.join(f'{n} residues {ms:.1f} ms' for n, ms in feat_ms.items())}; "
+            f"bound {FRONTEND_BOUND[0]}x{FRONTEND_BOUND[1]}: {bound_contacts} contacts at 6 A")
+
+        # cli.predict from the two PDB files, then from the npz it saved:
+        # the same seeded weights, the same map bit for bit (deterministic
+        # algorithms, as phase 5b runs predict).
+        npz = os.path.join(work, "pair.npz")
+        want = (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)
+        runs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, inputs in (("predict_pdb", ["--left_pdb", left, "--right_pdb", right,
+                                                  "--save_npz", npz]),
+                                 ("predict_npz", ["--input_npz", npz])):
+                out_dir = os.path.join(work, name)
+                t0 = time.perf_counter()
+                _, counts = _counted(lambda: _run_cli(predict_cli.main, [
+                    *inputs, "--output_dir", out_dir, "--seed", str(seed)]))
+                runs[name] = (counts, time.perf_counter() - t0,
+                              np.load(os.path.join(out_dir, "contact_prob_map.npy")))
+                check(counts == want, f"{name}: (K1, K2 launches, CSR builds) {counts}, "
+                      f"expected {want}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        probs = runs["predict_pdb"][2]
+        check(probs.shape == (n1, n2) and bool(np.isfinite(probs).all()),
+              f"PDB map {probs.shape}: expected ({n1}, {n2}), finite")
+        check(np.array_equal(probs, runs["predict_npz"][2]),
+              "cli.predict from PDB files and from its saved npz differ: max |diff| "
+              f"{float(np.abs(probs - runs['predict_npz'][2]).max()):.3g} (bitwise expected)")
+        log(f"  cli.predict --left_pdb --right_pdb --save_npz: {n1}x{n2} map finite, (K1, K2, "
+            f"CSR builds) {runs['predict_pdb'][0]}, wall {runs['predict_pdb'][1]:.3f} s (model "
+            f"init included); --input_npz on the saved npz: bitwise equal map, "
+            f"{runs['predict_npz'][0]}")
+
+        # PDB files -> map in process on a loaded model (host clock; the
+        # returned numpy map ends each run on the host).
+        model = load_model(ModelConfig(), device, seed=seed)
+        walls, feats = [], []
+        for _ in range(FRONTEND_TIMED_RUNS):
+            t0 = time.perf_counter()
+            raw = convert_pdb_pair_to_complex(left, right, with_labels=False)
+            t1 = time.perf_counter()
+            predict_complex(raw, model, device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            feats.append((t1 - t0) * 1e3)
+        del model
+        log(f"  PDB files -> map in process: {statistics.median(walls):.1f} ms, featurization "
+            f"{statistics.median(feats):.1f} ms of it (median of {FRONTEND_TIMED_RUNS})")
+
+        engine = InferenceEngine(ModelConfig(), cfg=EngineConfig(max_batch=1, result_cache_size=0),
+                                 seed=seed, device=device)
+        served = serve_pdb_pair(engine, left, right, device)
+        (label, info), = engine.stats()["compile_inventory"].items()
+        serve_counts = (info["k1_launches"], info["k2_launches"], info["csr_builds"])
+        check(serve_counts == want, f"served PDB key {label}: (K1, K2, CSR builds) "
+              f"{serve_counts} at its capture, expected {want}")
+        del engine
+        torch.cuda.empty_cache()
+        log(f"  POST /predict {{left_pdb, right_pdb}}: vs predict_complex "
+            f"{served['served_vs_predict_max']:.3g} (bar 1e-6), key {label} captured with "
+            f"{serve_counts}; first request {served['first_request_s']:.3f} s (capture "
+            f"included), warm {served['warm_request_ms']:.1f} ms (featurization included)")
+
+        # cli.build_dataset over four pairs, cli.analyze, the loader.
+        src, ds = os.path.join(work, "pairs"), os.path.join(work, "dataset")
+        os.makedirs(src)
+        for i, (a, b) in enumerate(FRONTEND_BUILDER):
+            write_pdb_file(os.path.join(src, f"c{i}_l_u.pdb"), (a, "A", 0.0, i))
+            write_pdb_file(os.path.join(src, f"c{i}_r_u.pdb"), (b, "B", FRONTEND_OFFSET, i + 7))
+        t0 = time.perf_counter()
+        _run_cli(build_cli.main, ["--input_dir", src, "--output_dir", ds])
+        build_dataset_s = time.perf_counter() - t0
+        names = sorted(os.listdir(os.path.join(ds, "processed")))
+        check(names == [f"c{i}.npz" for i in range(len(FRONTEND_BUILDER))],
+              f"build_dataset wrote {names}")
+        splits = {}
+        for mode in ("train", "val", "test"):
+            with open(os.path.join(ds, f"pairs-postprocessed-{mode}.txt")) as f:
+                splits[mode] = f.read().split()
+        check(sorted(sum(splits.values(), [])) == names, f"split files {splits}")
+        stats = json.loads(_run_cli(analyze_cli.main, ["stats", "--root", ds]).splitlines()[-1])
+        lengths = json.loads(_run_cli(analyze_cli.main, ["lengths", "--root", ds])
+                             .splitlines()[-1])
+        sizes = [n for pair in FRONTEND_BUILDER for n in pair]
+        check(stats["num_complexes"] == len(names) and stats["total_pos_contacts"] > 0
+              and (lengths["min"], lengths["max"]) == (min(sizes), max(sizes)),
+              f"analyze stats {stats}, lengths {lengths}")
+        loaded = 0
+        for mode, entries in splits.items():
+            for batch in (BucketedLoader(DIPSDataset(ds, mode)) if entries else ()):
+                loaded += int(batch.graph1.num_nodes.shape[0])
+                check(bool(torch.isfinite(batch.graph1.node_feats).all()),
+                      f"{mode} batch not finite")
+        check(loaded == len(names), f"the loader read {loaded} complexes of {len(names)}")
+        log(f"  cli.build_dataset: {len(names)} pairs in {build_dataset_s:.3f} s, splits "
+            f"{ {m: len(v) for m, v in splits.items()} }; cli.analyze stats {stats}; lengths "
+            f"{lengths}; BucketedLoader read {loaded}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 14: {seconds:.1f} s (limit {FRONTEND_LIMIT_S:.0f} s); card {smi}")
+    check(seconds <= FRONTEND_LIMIT_S, f"phase 14 took {seconds:.1f} s, over its "
+          f"{FRONTEND_LIMIT_S:.0f} s limit")
+    return {"native": {"compiler": cxx, "library": lib.name, "found_built": found,
+                       "build_s": build_s, "max_abs_err_vs_numpy": native_errs},
+            "featurize_ms_per_chain": feat_ms, "bound_contacts": bound_contacts,
+            "launches": {"predict_pdb": runs["predict_pdb"][0],
+                         "predict_npz": runs["predict_npz"][0],
+                         "serve_pdb_per_capture": serve_counts},
+            "cli_predict_pdb_wall_s": runs["predict_pdb"][1],
+            "cli_predict_npz_wall_s": runs["predict_npz"][1],
+            "pdb_vs_npz_bitwise": True, "map_shape": list(probs.shape),
+            "pdb_to_map_ms": statistics.median(walls),
+            "featurize_pair_ms": statistics.median(feats), "serve": served,
+            "build_dataset_s": build_dataset_s, "splits": {m: len(v) for m, v in splits.items()},
+            "analyze_stats": stats, "analyze_lengths": lengths, "loader_complexes": loaded,
+            "seconds": seconds, "card": smi}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3623,262 +3999,294 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    watchdog = threading.Timer(SCRIPT_LIMIT_S, _overrun)
+    watchdog.daemon = True
+    watchdog.start()
 
-    log("== phase 1: device and toolchain")
-    log(f"  device: {name} (count {torch.cuda.device_count()}, capability "
-        f"{torch.cuda.get_device_capability(0)})")
-    log(f"  nvidia-smi: {smi}")
-    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
-    nvcc = subprocess.run([cuda_attention._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
-    log(f"  nvcc: {nvcc[-2] if len(nvcc) > 1 else nvcc[-1]}")
-    try:
-        import triton
-        log(f"  triton {triton.__version__}")
-    except ImportError:
-        log("  triton: not importable")
+    with phase("1"):
+        smi = nvidia_smi_line()
+        log("== phase 1: device and toolchain")
+        log(f"  device: {name} (count {torch.cuda.device_count()}, capability "
+            f"{torch.cuda.get_device_capability(0)})")
+        log(f"  nvidia-smi: {smi}")
+        log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
+        nvcc = subprocess.run([cuda_attention._nvcc(), "--version"], capture_output=True,
+                              text=True, check=True).stdout.strip().splitlines()
+        log(f"  nvcc: {nvcc[-2] if len(nvcc) > 1 else nvcc[-1]}")
+        try:
+            import triton
+            log(f"  triton {triton.__version__}")
+        except ImportError:
+            log("  triton: not importable")
 
-    build_kernels()
+    with phase("2"):
+        build_kernels()
     rng = np.random.default_rng(args.seed)
-    flagship, flagship_bwd, fwd_errs, bwd_err, n768_errs, head_dims = kernel_parity(rng)
+    with phase("3"):
+        flagship, flagship_bwd, fwd_errs, bwd_err, n768_errs, head_dims = kernel_parity(rng)
 
-    log("== phase 4: predict path (predict_complex, flagship width, seeded weights)")
-    cfg = ModelConfig()
-    set_backend_precision(cfg.gnn.compute_dtype)
-    model = load_model(cfg, device, seed=args.seed)
-    plain_cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, attention_impl="plain"))
-    plain_model = load_model(plain_cfg, device, seed=args.seed)
-    plain_model.load_state_dict(model.state_dict())
-    raws = [random_raw_complex(n1, n2, rng) for n1, n2 in COMPLEXES]
-    predict_counts, logit_diffs = run_predict_path(model, plain_model, raws, device)
-    bf16 = load_model(dataclasses.replace(cfg, compute_dtype="bfloat16"), device, seed=args.seed)
-    probs16 = predict_complex(raws[0], bf16, device)["contact_prob_map"]
-    check(probs16.shape == COMPLEXES[0] and bool(np.isfinite(probs16).all()),
-          "bfloat16 policy: probabilities not finite")
-    log(f"  bfloat16 policy: {COMPLEXES[0][0]}x{COMPLEXES[0][1]} probs finite, "
-        f"max |p_bf16 - p_f32| {np.abs(probs16 - predict_complex(raws[0], model, device)['contact_prob_map']).max():.3g}")
-    del bf16
+    with phase("4"):
+        log("== phase 4: predict path (predict_complex, flagship width, seeded weights)")
+        cfg = ModelConfig()
+        set_backend_precision(cfg.gnn.compute_dtype)
+        model = load_model(cfg, device, seed=args.seed)
+        plain_cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn,
+                                                                     attention_impl="plain"))
+        plain_model = load_model(plain_cfg, device, seed=args.seed)
+        plain_model.load_state_dict(model.state_dict())
+        raws = [random_raw_complex(n1, n2, rng) for n1, n2 in COMPLEXES]
+        predict_counts, logit_diffs = run_predict_path(model, plain_model, raws, device)
+        bf16 = load_model(dataclasses.replace(cfg, compute_dtype="bfloat16"), device,
+                          seed=args.seed)
+        probs16 = predict_complex(raws[0], bf16, device)["contact_prob_map"]
+        check(probs16.shape == COMPLEXES[0] and bool(np.isfinite(probs16).all()),
+              "bfloat16 policy: probabilities not finite")
+        log(f"  bfloat16 policy: {COMPLEXES[0][0]}x{COMPLEXES[0][1]} probs finite, "
+            f"max |p_bf16 - p_f32| {np.abs(probs16 - predict_complex(raws[0], model, device)['contact_prob_map']).max():.3g}")
+        del bf16
 
-    log("== phase 5: training path (cli.train, flagship width, one epoch)")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
-        write_tiny_npz_dataset(root, sizes=COMPLEXES, seed=args.seed, knn=constants.KNN,
-                               geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
-        train_counts, train_steps = run_train_path(root, args.seed)
-        batches = list(BucketedLoader(DIPSDataset(root, "train")))
-    state = create_train_state(model, seed=args.seed)
-    check_step_launches(state, batches[-1])
-    bn_diffs = compare_train_step("batch norm (flagship)", model, plain_model, batches[-1],
-                                  args.seed, spread_seeds=(1, 2))
-    ln_cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, norm_type="layer"))
-    ln_plain_cfg = dataclasses.replace(
-        ln_cfg, gnn=dataclasses.replace(ln_cfg.gnn, attention_impl="plain"))
-    ln_diffs = compare_train_step("layer norm", load_model(ln_cfg, device, seed=args.seed),
-                                  load_model(ln_plain_cfg, device, seed=args.seed),
-                                  batches[-1], args.seed)
-    del plain_model
+    with phase("5"):
+        log("== phase 5: training path (cli.train, flagship width, one epoch)")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as root:
+            write_tiny_npz_dataset(root, sizes=COMPLEXES, seed=args.seed, knn=constants.KNN,
+                                   geo_nbrhd_size=constants.GEO_NBRHD_SIZE)
+            train_counts, train_steps = run_train_path(root, args.seed)
+            batches = list(BucketedLoader(DIPSDataset(root, "train")))
+        state = create_train_state(model, seed=args.seed)
+        check_step_launches(state, batches[-1])
+        bn_diffs = compare_train_step("batch norm (flagship)", model, plain_model, batches[-1],
+                                      args.seed, spread_seeds=(1, 2))
+        ln_cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, norm_type="layer"))
+        ln_plain_cfg = dataclasses.replace(
+            ln_cfg, gnn=dataclasses.replace(ln_cfg.gnn, attention_impl="plain"))
+        ln_diffs = compare_train_step("layer norm", load_model(ln_cfg, device, seed=args.seed),
+                                      load_model(ln_plain_cfg, device, seed=args.seed),
+                                      batches[-1], args.seed)
+        del plain_model
 
-    log("== phase 5b: training lifecycle (cli.train --ckpt_dir / --resume, cli.test and "
-        "predict --ckpt_name; flagship width, then DeepLab; deterministic algorithms)")
-    torch.use_deterministic_algorithms(True)
-    try:
-        lifecycle = run_lifecycle(raws[0], args.seed, device, exact=True)
-        log("  DeepLab lifecycle (--interact_module_type deeplab, two complexes):")
-        lifecycle["deeplab"] = run_lifecycle(
-            raws[0], args.seed, device, exact=True, flags=["--interact_module_type", "deeplab"],
-            sizes=DEEPLAB_LIFECYCLE, save_modes=False)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    lifecycle["checkpoint"] = time_checkpoint(state)
-    log("  lifecycle: " + json.dumps(lifecycle))
+    with phase("5b"):
+        log("== phase 5b: training lifecycle (cli.train --ckpt_dir / --resume, cli.test and "
+            "predict --ckpt_name; flagship width, then DeepLab; deterministic algorithms)")
+        torch.use_deterministic_algorithms(True)
+        try:
+            lifecycle = run_lifecycle(raws[0], args.seed, device, exact=True)
+            log("  DeepLab lifecycle (--interact_module_type deeplab, two complexes):")
+            lifecycle["deeplab"] = run_lifecycle(
+                raws[0], args.seed, device, exact=True,
+                flags=["--interact_module_type", "deeplab"], sizes=DEEPLAB_LIFECYCLE,
+                save_modes=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        lifecycle["checkpoint"] = time_checkpoint(state)
+        log("  lifecycle: " + json.dumps(lifecycle))
 
-    log("== phase 6: times (CUDA events; kernels median of 20, predict of "
-        f"{PHASE6_PREDICT_RUNS})")
-    ktimes = time_kernels(rng, flagship, flagship_bwd)
-    for (n1, n2), raw in zip(COMPLEXES, raws):
-        t = time_predict(model, raw, device, runs=PHASE6_PREDICT_RUNS)
-        log(f"  predict {n1}x{n2}: encode x2 {t['encode_ms']:.3f} ms, decode "
-            f"{t['decode_ms']:.3f} ms, predict_complex wall {t['predict_wall_ms']:.3f} ms")
-    for batch in batches:
-        b1, b2 = batch.contact_map.shape[1:]
-        n1, n2 = int(batch.graph1.num_nodes[0]), int(batch.graph2.num_nodes[0])
-        t = time_train_step(state, batch.to(device), runs=PHASE6_TRAIN_RUNS)
-        log(f"  train step {n1}x{n2} (buckets {b1}/{b2}): {t['train_step_ms']:.3f} ms "
-            f"(host clock, synchronized, median of {PHASE6_TRAIN_RUNS}), peak memory "
-            f"{t['max_memory_allocated_gb']:.3f} GiB; split: forward+loss "
-            f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, optimizer "
-            f"{t['optimizer_ms']:.3f} ms")
-    prof = profile_train_step(state, batches[-1].to(device))
-    busy = ("not measured (no device events in the trace)" if prof["device_busy_ms"] is None
-            else f"{prof['device_busy_ms']:.3f} ms busy "
-                 f"({100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%)")
-    log(f"  train step {n1}x{n2} under torch.profiler: wall {prof['wall_ms']:.3f} ms, "
-        f"{prof['kernels']} device kernels, device {busy}")
+    with phase("6"):
+        log("== phase 6: times (CUDA events; kernels median of 20, predict of "
+            f"{PHASE6_PREDICT_RUNS})")
+        ktimes = time_kernels(rng, flagship, flagship_bwd)
+        for (n1, n2), raw in zip(COMPLEXES, raws):
+            t = time_predict(model, raw, device, runs=PHASE6_PREDICT_RUNS)
+            log(f"  predict {n1}x{n2}: encode x2 {t['encode_ms']:.3f} ms, decode "
+                f"{t['decode_ms']:.3f} ms, predict_complex wall {t['predict_wall_ms']:.3f} ms")
+        for batch in batches:
+            b1, b2 = batch.contact_map.shape[1:]
+            n1, n2 = int(batch.graph1.num_nodes[0]), int(batch.graph2.num_nodes[0])
+            t = time_train_step(state, batch.to(device), runs=PHASE6_TRAIN_RUNS)
+            log(f"  train step {n1}x{n2} (buckets {b1}/{b2}): {t['train_step_ms']:.3f} ms "
+                f"(host clock, synchronized, median of {PHASE6_TRAIN_RUNS}), peak memory "
+                f"{t['max_memory_allocated_gb']:.3f} GiB; split: forward+loss "
+                f"{t['forward_ms']:.3f} ms, backward {t['backward_ms']:.3f} ms, optimizer "
+                f"{t['optimizer_ms']:.3f} ms")
+        prof = profile_train_step(state, batches[-1].to(device))
+        busy = ("not measured (no device events in the trace)" if prof["device_busy_ms"] is None
+                else f"{prof['device_busy_ms']:.3f} ms busy "
+                     f"({100 * prof['device_busy_ms'] / prof['wall_ms']:.1f}%)")
+        log(f"  train step {n1}x{n2} under torch.profiler: wall {prof['wall_ms']:.3f} ms, "
+            f"{prof['kernels']} device kernels, device {busy}")
 
-    log("== phase 7: model configurations (flagship encoder width, seeded weights)")
-    del state, model
-    torch.cuda.empty_cache()
-    configs = run_model_configs(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
-                                device, smi)
-    remat = run_remat(cfg, args.seed, device, smi, CONFIG_RUNS["train_tiled"])
-    for policy in REMAT_POLICIES:
-        configs[f"train_six_tiles_remat_{policy}"] = remat[f"train_six_tiles_{policy}"]
-    importer = run_importer(cfg, raws, args.seed, device)
-    supervisor = run_supervisor(args.seed)
-    serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
-                          device, smi)
-    serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
+    with phase("7"):
+        log("== phase 7: model configurations (flagship encoder width, seeded weights)")
+        del state, model
+        torch.cuda.empty_cache()
+        configs = run_model_configs(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng),
+                                    args.seed, device, smi)
+    with phase("8a"):
+        remat = run_remat(cfg, args.seed, device, smi, CONFIG_RUNS["train_tiled"])
+        for policy in REMAT_POLICIES:
+            configs[f"train_six_tiles_remat_{policy}"] = remat[f"train_six_tiles_{policy}"]
+    with phase("8b"):
+        importer = run_importer(cfg, raws, args.seed, device)
+    with phase("8c"):
+        supervisor = run_supervisor(args.seed)
+    with phase("9"):
+        serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
+                              device, smi)
+        serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work:
-        screening = run_screening(cfg, args.seed, device, smi, work)
-        fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
-    dispatch = run_dispatch_loop(args.seed, device, smi)
-    graphs13 = run_step_graphs(args.seed, device, smi)
-    log("  remat: " + json.dumps({k: v for k, v in remat.items()
-                                  if not k.startswith("train_six")}))
-    config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
-    # Launches of the other counted paths: (K1, K2, CSR builds) each.
-    more_paths = {**{f"{path}_deeplab": lifecycle["deeplab"]["launches"][path]
-                     for path in LIFECYCLE_PATHS},
-                  **{f"import_{path}": counts for path, counts in importer["launches"].items()}}
+        with phase("10"):
+            screening = run_screening(cfg, args.seed, device, smi, work)
+        with phase("11"):
+            fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
+    with phase("12"):
+        dispatch = run_dispatch_loop(args.seed, device, smi)
+    with phase("13"):
+        graphs13 = run_step_graphs(args.seed, device, smi)
+    with phase("14"):
+        frontend = run_frontend(args.seed, device, smi)
+    with phase("summary"):
+        log("  remat: " + json.dumps({k: v for k, v in remat.items()
+                                      if not k.startswith("train_six")}))
+        config_paths = [k for k in configs if k.startswith(("predict_", "train_"))]
+        # Launches of the other counted paths: (K1, K2, CSR builds) each.
+        more_paths = {**{f"{path}_deeplab": lifecycle["deeplab"]["launches"][path]
+                         for path in LIFECYCLE_PATHS},
+                      **{f"import_{path}": counts for path, counts in importer["launches"].items()}}
 
-    at = ktimes["by_n"][256]
-    common = {"route": "cuda", "library_ms": None, "parity": "pass",
-              "csr_build_ms": at["csr_ms"],
-              "csr_build_ms_by_n": {n: t["csr_ms"] for n, t in ktimes["by_n"].items()},
-              "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2],
-                                     **{path: lifecycle["launches"][path][2]
-                                        for path in LIFECYCLE_PATHS},
-                                     **{path: configs[path]["launches"][2]
-                                        for path in config_paths},
-                                     **{path: c[2] for path, c in more_paths.items()},
-                                     "serve_per_capture": serving["per_capture"][2],
-                                     **{f"serve_{name}_per_capture": c["per_capture"][2]
-                                        for name, c in serving["configs"].items()},
-                                     "screen": screening["launches"][2],
-                                     "screen_encode_per_capture":
-                                         screening["per_encode_capture"][2],
-                                     "route_screen_per_encode_capture": ENCODE_COUNTS[2],
-                                     "route_assembly": fleet["routes"]["assembly"]["launches"][2],
-                                     "fleet_worker_per_capture": FLEET_COUNTS[2],
-                                     **{f"dispatch_{mode}": c[2]
-                                        for mode, c in dispatch["launches"].items()}},
-              "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
-                             ("tiled_two", "deeplab"))},
-                         "importer": {k: v for k, v in importer.items() if k != "launches"},
-                         "supervisor": {k: v for k, v in supervisor.items() if k != "record"},
-                         "supervisor_restarts": supervisor["record"]["restarts"]},
-              "model_configs": {
-                  "predict_max_logit_diff_vs_plain": {
-                      path: configs[path]["max_logit_diff"] for path in config_paths
-                      if path.startswith("predict_")},
-                  "predict_max_rounding_spread": {
-                      path: configs[path]["max_spread"] for path in config_paths
-                      if path.startswith("predict_")},
-                  "tiles_vs_direct_max_diff": {k: v for k, v in configs.items()
-                                               if k.endswith("_tiles_max_diff")},
-                  "deeplab_stems_max_diff_and_spread": configs["deeplab_stems"],
-                  "peak_gib": {path: (max(c["peak_gib"] for c in configs[path]["complexes"])
-                                      if path.startswith("predict_")
-                                      else configs[path]["max_memory_allocated_gb"])
-                               for path in config_paths}}}
-    kernels = [{
-        "name": "edge_attention_fwd",
-        "source": "deepinteract_tpu_torch/csrc/edge_attention_fwd.cu",
-        "replaces": "deepinteract_tpu/ops/pallas_attention.py:443",
-        "launches": train_counts[0],
-        "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0],
-                             **{path: lifecycle["launches"][path][0]
-                                for path in LIFECYCLE_PATHS},
-                             **{path: configs[path]["launches"][0] for path in config_paths},
-                             **{path: c[0] for path, c in more_paths.items()},
-                             # Served: counted at each capture (the Python counter does
-                             # not run at replay), and the replays of every entry.
-                             "serve_per_capture": serving["per_capture"][0],
-                             "serve_replays": serving["replays"],
-                             **{f"serve_{name}_per_capture": c["per_capture"][0]
-                                for name, c in serving["configs"].items()},
-                             # Phase 10: counted around the screen (at each encode
-                             # capture), per encode capture, and the encode replays.
-                             "screen": screening["launches"][0],
-                             "screen_encode_per_capture": screening["per_encode_capture"][0],
-                             "screen_encode_replays": screening["encode_replays"],
-                             # Phase 11: at each encode capture of the /screen route,
-                             # around the /assembly route, and at each capture of a
-                             # fleet worker (its /stats compile_inventory).
-                             "route_screen_per_encode_capture":
-                                 fleet["routes"]["route_screen_per_encode_capture"],
-                             "route_assembly": fleet["routes"]["route_assembly"],
-                             "fleet_worker_per_capture": fleet["fleet_worker_per_capture"],
-                             # Phase 12: around the inline and the prefetching run.
-                             **{f"dispatch_{mode}": c[0]
-                                for mode, c in dispatch["launches"].items()},
-                             # Phase 13: around each cli.train run (graphed: at the
-                             # captures), and in one profiled train and eval replay.
-                             **{f"step_graphs_{mode}": c[0]
-                                for mode, c in graphs13["launches"].items()},
-                             "train_replay_profiled": graphs13["profiled_train_replay"]["k1"],
-                             "eval_replay_profiled": graphs13["profiled_eval_replay"]["k1"]},
-        "dispatch_profile_window_k1": dispatch["trace"]["k1"],
-        "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
-        "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
-        "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
-        "ms_by_head_dim": {k: t["k1_ms"] for k, t in ktimes["by_head_dim"].items()},
-        "bound_ms_by_head_dim": {k: t["k1_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
-        "max_abs_err_head_dims": {dt: e["k1"] for dt, e in head_dims.items()},
-        "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
-        "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
-        "ms_by_n": {n: t["k1_ms"] for n, t in ktimes["by_n"].items()},
-        "bound_ms_by_n": {n: t["k1_bound_ms"] for n, t in ktimes["by_n"].items()},
-        "max_abs_logit_diff_vs_plain": max(logit_diffs), **common,
-    }, {
-        "name": "edge_attention_bwd",
-        "source": "deepinteract_tpu_torch/csrc/edge_attention_bwd.cu",
-        "replaces": "deepinteract_tpu/ops/pallas_attention.py:519",
-        "launches": train_counts[1],
-        "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1],
-                             **{path: lifecycle["launches"][path][1]
-                                for path in LIFECYCLE_PATHS},
-                             **{path: configs[path]["launches"][1] for path in config_paths},
-                             **{path: c[1] for path, c in more_paths.items()},
-                             "serve_per_capture": serving["per_capture"][1],
-                             **{f"serve_{name}_per_capture": c["per_capture"][1]
-                                for name, c in serving["configs"].items()},
-                             "screen": screening["launches"][1],
-                             "screen_encode_per_capture": screening["per_encode_capture"][1],
-                             "route_screen_per_encode_capture": ENCODE_COUNTS[1],
-                             "route_assembly": fleet["routes"]["assembly"]["launches"][1],
-                             "fleet_worker_per_capture": FLEET_COUNTS[1],
-                             **{f"dispatch_{mode}": c[1]
-                                for mode, c in dispatch["launches"].items()},
-                             **{f"step_graphs_{mode}": c[1]
-                                for mode, c in graphs13["launches"].items()},
-                             "train_replay_profiled": graphs13["profiled_train_replay"]["k2"],
-                             "eval_replay_profiled": graphs13["profiled_eval_replay"]["k2"]},
-        "dispatch_profile_window_k2": dispatch["trace"]["k2"],
-        "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
-        "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
-        "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
-        "max_abs_err_head_dims": {dt: e["k2"] for dt, e in head_dims.items()},
-        "function_max_abs_err_head_dims": {dt: e["function"] for dt, e in head_dims.items()},
-        "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
-        "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],
-        "ms_by_n": {n: t["k2_ms"] for n, t in ktimes["by_n"].items()},
-        "bound_ms_by_n": {n: t["k2_bound_ms"] for n, t in ktimes["by_n"].items()},
-        "train_steps": train_steps,
-        "train_step_vs_plain": {
-            "batch_norm": dict(zip(("loss_diff", "max_grad_diff", "max_grad_spread"), bn_diffs)),
-            "layer_norm": dict(zip(("loss_diff", "max_grad_diff"), ln_diffs[:2]))},
-        **common,
-    }]
-    print(json.dumps({"serving": serving}), flush=True)
-    print(json.dumps({"screening": screening}), flush=True)
-    print(json.dumps({"fleet": fleet}), flush=True)
-    print(json.dumps({"step_graphs": graphs13}), flush=True)
-    print(json.dumps({"dispatch": dispatch}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(nvidia_smi_line(), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+        at = ktimes["by_n"][256]
+        common = {"route": "cuda", "library_ms": None, "parity": "pass",
+                  "csr_build_ms": at["csr_ms"],
+                  "csr_build_ms_by_n": {n: t["csr_ms"] for n, t in ktimes["by_n"].items()},
+                  "csr_builds_by_path": {"predict": predict_counts[2], "train": train_counts[2],
+                                         **{path: lifecycle["launches"][path][2]
+                                            for path in LIFECYCLE_PATHS},
+                                         **{path: configs[path]["launches"][2]
+                                            for path in config_paths},
+                                         **{path: c[2] for path, c in more_paths.items()},
+                                         "serve_per_capture": serving["per_capture"][2],
+                                         **{f"serve_{name}_per_capture": c["per_capture"][2]
+                                            for name, c in serving["configs"].items()},
+                                         "screen": screening["launches"][2],
+                                         "screen_encode_per_capture":
+                                             screening["per_encode_capture"][2],
+                                         "route_screen_per_encode_capture": ENCODE_COUNTS[2],
+                                         "route_assembly": fleet["routes"]["assembly"]["launches"][2],
+                                         "fleet_worker_per_capture": FLEET_COUNTS[2],
+                                         **{f"dispatch_{mode}": c[2]
+                                            for mode, c in dispatch["launches"].items()},
+                                         **{path: c[2] for path, c in frontend["launches"].items()}},
+                  "phase8": {"remat": {k: v for k, v in remat.items() if k.startswith(
+                                 ("tiled_two", "deeplab"))},
+                             "importer": {k: v for k, v in importer.items() if k != "launches"},
+                             "supervisor": {k: v for k, v in supervisor.items() if k != "record"},
+                             "supervisor_restarts": supervisor["record"]["restarts"]},
+                  "model_configs": {
+                      "predict_max_logit_diff_vs_plain": {
+                          path: configs[path]["max_logit_diff"] for path in config_paths
+                          if path.startswith("predict_")},
+                      "predict_max_rounding_spread": {
+                          path: configs[path]["max_spread"] for path in config_paths
+                          if path.startswith("predict_")},
+                      "tiles_vs_direct_max_diff": {k: v for k, v in configs.items()
+                                                   if k.endswith("_tiles_max_diff")},
+                      "deeplab_stems_max_diff_and_spread": configs["deeplab_stems"],
+                      "peak_gib": {path: (max(c["peak_gib"] for c in configs[path]["complexes"])
+                                          if path.startswith("predict_")
+                                          else configs[path]["max_memory_allocated_gb"])
+                                   for path in config_paths}}}
+        kernels = [{
+            "name": "edge_attention_fwd",
+            "source": "deepinteract_tpu_torch/csrc/edge_attention_fwd.cu",
+            "replaces": "deepinteract_tpu/ops/pallas_attention.py:443",
+            "launches": train_counts[0],
+            "launches_by_path": {"predict": predict_counts[0], "train": train_counts[0],
+                                 **{path: lifecycle["launches"][path][0]
+                                    for path in LIFECYCLE_PATHS},
+                                 **{path: configs[path]["launches"][0] for path in config_paths},
+                                 **{path: c[0] for path, c in more_paths.items()},
+                                 # Served: counted at each capture (the Python counter does
+                                 # not run at replay), and the replays of every entry.
+                                 "serve_per_capture": serving["per_capture"][0],
+                                 "serve_replays": serving["replays"],
+                                 **{f"serve_{name}_per_capture": c["per_capture"][0]
+                                    for name, c in serving["configs"].items()},
+                                 # Phase 10: counted around the screen (at each encode
+                                 # capture), per encode capture, and the encode replays.
+                                 "screen": screening["launches"][0],
+                                 "screen_encode_per_capture": screening["per_encode_capture"][0],
+                                 "screen_encode_replays": screening["encode_replays"],
+                                 # Phase 11: at each encode capture of the /screen route,
+                                 # around the /assembly route, and at each capture of a
+                                 # fleet worker (its /stats compile_inventory).
+                                 "route_screen_per_encode_capture":
+                                     fleet["routes"]["route_screen_per_encode_capture"],
+                                 "route_assembly": fleet["routes"]["route_assembly"],
+                                 "fleet_worker_per_capture": fleet["fleet_worker_per_capture"],
+                                 # Phase 12: around the inline and the prefetching run.
+                                 **{f"dispatch_{mode}": c[0]
+                                    for mode, c in dispatch["launches"].items()},
+                                 # Phase 13: around each cli.train run (graphed: at the
+                                 # captures), and in one profiled train and eval replay.
+                                 **{f"step_graphs_{mode}": c[0]
+                                    for mode, c in graphs13["launches"].items()},
+                                 "train_replay_profiled": graphs13["profiled_train_replay"]["k1"],
+                                 "eval_replay_profiled": graphs13["profiled_eval_replay"]["k1"],
+                                 # Phase 14: around cli.predict from two PDB files and
+                                 # from its saved npz, at the served PDB key's capture.
+                                 **{path: c[0] for path, c in frontend["launches"].items()}},
+            "dispatch_profile_window_k1": dispatch["trace"]["k1"],
+            "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
+            "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
+            "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
+            "ms_by_head_dim": {k: t["k1_ms"] for k, t in ktimes["by_head_dim"].items()},
+            "bound_ms_by_head_dim": {k: t["k1_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
+            "max_abs_err_head_dims": {dt: e["k1"] for dt, e in head_dims.items()},
+            "ms": at["k1_ms"], "plain_ms": ktimes["k1_plain_ms"], "bound_ms": at["k1_bound_ms"],
+            "bound_by": at["k1_bound_by"], "host_ms": at["k1_host_ms"],
+            "ms_by_n": {n: t["k1_ms"] for n, t in ktimes["by_n"].items()},
+            "bound_ms_by_n": {n: t["k1_bound_ms"] for n, t in ktimes["by_n"].items()},
+            "max_abs_logit_diff_vs_plain": max(logit_diffs), **common,
+        }, {
+            "name": "edge_attention_bwd",
+            "source": "deepinteract_tpu_torch/csrc/edge_attention_bwd.cu",
+            "replaces": "deepinteract_tpu/ops/pallas_attention.py:519",
+            "launches": train_counts[1],
+            "launches_by_path": {"predict": predict_counts[1], "train": train_counts[1],
+                                 **{path: lifecycle["launches"][path][1]
+                                    for path in LIFECYCLE_PATHS},
+                                 **{path: configs[path]["launches"][1] for path in config_paths},
+                                 **{path: c[1] for path, c in more_paths.items()},
+                                 "serve_per_capture": serving["per_capture"][1],
+                                 **{f"serve_{name}_per_capture": c["per_capture"][1]
+                                    for name, c in serving["configs"].items()},
+                                 "screen": screening["launches"][1],
+                                 "screen_encode_per_capture": screening["per_encode_capture"][1],
+                                 "route_screen_per_encode_capture": ENCODE_COUNTS[1],
+                                 "route_assembly": fleet["routes"]["assembly"]["launches"][1],
+                                 "fleet_worker_per_capture": FLEET_COUNTS[1],
+                                 **{f"dispatch_{mode}": c[1]
+                                    for mode, c in dispatch["launches"].items()},
+                                 **{f"step_graphs_{mode}": c[1]
+                                    for mode, c in graphs13["launches"].items()},
+                                 "train_replay_profiled": graphs13["profiled_train_replay"]["k2"],
+                                 "eval_replay_profiled": graphs13["profiled_eval_replay"]["k2"],
+                                 **{path: c[1] for path, c in frontend["launches"].items()}},
+            "dispatch_profile_window_k2": dispatch["trace"]["k2"],
+            "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
+            "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
+            "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
+            "max_abs_err_head_dims": {dt: e["k2"] for dt, e in head_dims.items()},
+            "function_max_abs_err_head_dims": {dt: e["function"] for dt, e in head_dims.items()},
+            "ms": at["k2_ms"], "plain_ms": ktimes["k2_plain_ms"], "bound_ms": at["k2_bound_ms"],
+            "bound_by": at["k2_bound_by"], "host_ms": at["k2_host_ms"],
+            "ms_by_n": {n: t["k2_ms"] for n, t in ktimes["by_n"].items()},
+            "bound_ms_by_n": {n: t["k2_bound_ms"] for n, t in ktimes["by_n"].items()},
+            "train_steps": train_steps,
+            "train_step_vs_plain": {
+                "batch_norm": dict(zip(("loss_diff", "max_grad_diff", "max_grad_spread"), bn_diffs)),
+                "layer_norm": dict(zip(("loss_diff", "max_grad_diff"), ln_diffs[:2]))},
+            **common,
+        }]
+        print(json.dumps({"serving": serving}), flush=True)
+        print(json.dumps({"screening": screening}), flush=True)
+        print(json.dumps({"fleet": fleet}), flush=True)
+        print(json.dumps({"step_graphs": graphs13}), flush=True)
+        print(json.dumps({"dispatch": dispatch}), flush=True)
+        print(json.dumps({"frontend": frontend}), flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(nvidia_smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+    watchdog.cancel()
     return 0
 
 

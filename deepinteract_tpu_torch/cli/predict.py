@@ -1,6 +1,10 @@
-"""Predict CLI: one featurized complex ``.npz`` -> contact map.
+"""Predict CLI: one complex -> contact map.
 
-Port of ``deepinteract_tpu/cli/predict.py`` for ``--input_npz``. Writes
+Port of ``deepinteract_tpu/cli/predict.py``. The complex is either a
+featurized ``.npz`` (``--input_npz``) or two PDB files (``--left_pdb`` and
+``--right_pdb``), featurized on the host by
+:mod:`deepinteract_tpu_torch.pipeline` (without labels, as the JAX CLI
+does; ``--save_npz`` also writes the featurized complex). Writes
 
 * ``contact_prob_map.npy``      — [n1, n2] positive-class softmax map
 * ``graph1_node_feats.npy`` / ``graph2_node_feats.npy``
@@ -20,7 +24,8 @@ model gets the port's seeded init. ``--input_indep`` zeroes every input
 feature first (the reference's control). Runs on the GPU unless
 ``--device cpu`` is given.
 
-    python -m deepinteract_tpu_torch.cli.predict --input_npz X --output_dir Y \
+    python -m deepinteract_tpu_torch.cli.predict \
+        (--input_npz X | --left_pdb L --right_pdb R [--save_npz C]) --output_dir Y \
         [--weights W.npz | --ckpt_name DIR] [--top_k 10 [--calibration C.json]] \
         [--input_indep] [--device cpu]
 """
@@ -101,8 +106,13 @@ def predict_complex(raw: Dict, model: DeepInteract, device,
 
 def main(argv=None) -> int:
     parser = build_parser(__doc__)
-    parser.add_argument("--input_npz", type=str, required=True,
+    parser.add_argument("--input_npz", type=str, default=None,
                         help="complex .npz (see deepinteract_tpu_torch.data.io)")
+    parser.add_argument("--left_pdb", type=str, default=None,
+                        help="left chain PDB (featurized by the pipeline)")
+    parser.add_argument("--right_pdb", type=str, default=None)
+    parser.add_argument("--save_npz", type=str, default=None,
+                        help="also persist the featurized complex here")
     parser.add_argument("--output_dir", type=str, default=".")
     parser.add_argument("--weights", type=str, default=None,
                         help="flat-path .npz of JAX variables (weights.save_npz)")
@@ -116,6 +126,8 @@ def main(argv=None) -> int:
     add_restore_args(parser)
     add_calibration_args(parser)
     args = parser.parse_args(argv)
+    if not args.input_npz and not (args.left_pdb and args.right_pdb):
+        parser.error("provide --input_npz or both --left_pdb and --right_pdb")
     if args.weights and args.ckpt_name:
         parser.error("give --weights or --ckpt_name, not both")
     try:
@@ -138,8 +150,7 @@ def main(argv=None) -> int:
             expect_signature=args.ckpt_name or (
                 carried_signature(model) if args.weights else seeded_signature(args.seed)),
             allow_stale=args.allow_stale_calibration)
-    out = predict_complex(load_complex_npz(args.input_npz), model, device,
-                          input_indep=args.input_indep)
+    out = predict_complex(load_input(args), model, device, input_indep=args.input_indep)
     os.makedirs(args.output_dir, exist_ok=True)
     saved = []
     for name in ("contact_prob_map",) + REPRESENTATIONS:
@@ -152,6 +163,17 @@ def main(argv=None) -> int:
     if args.top_k > 0:
         write_top_contacts(args, out, cal)
     return 0
+
+
+def load_input(args) -> Dict:
+    """The raw complex of ``--input_npz``, else the featurized PDB pair
+    (saved to ``--save_npz`` when given)."""
+    if args.input_npz:
+        return load_complex_npz(args.input_npz)
+    from deepinteract_tpu_torch.pipeline.pair import convert_pdb_pair_to_complex
+
+    return convert_pdb_pair_to_complex(args.left_pdb, args.right_pdb,
+                                       output_npz=args.save_npz, with_labels=False)
 
 
 def write_top_contacts(args, out: Dict[str, np.ndarray], cal) -> None:

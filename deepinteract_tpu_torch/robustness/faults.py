@@ -14,6 +14,10 @@ Plan syntax (``DI_FAULTS`` environment variable or :func:`configure`)::
 
 Sites of the port:
 
+* ``native.compile``     raises OSError before the geometry library's
+  compiler runs (``pipeline/native.py``; a transient failure, retried)
+* ``hhblits.run``        raises CalledProcessError (exit 137, an OOM kill)
+  before hhblits runs (``pipeline/postprocess.py``; retried)
 * ``loader.batch``       raises ValueError while a batch is assembled
   (``data/loader.py``; the skip budget's test hook)
 * ``train.nan_batch``    poisons every float tensor of the batch with NaN

@@ -58,6 +58,7 @@ import time
 import torch
 
 from deepinteract_tpu_torch.data.graph import ProteinGraph
+from deepinteract_tpu_torch.device import graph_capture
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.ops import cuda_attention
 
@@ -155,8 +156,7 @@ class GraphEntry:
         k2 = cuda_attention.edge_attention_backward.launches
         builds = cuda_attention.in_edge_csr.builds
         self.graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool,
-                                                      capture_error_mode="thread_local"):
+        with torch.inference_mode(), graph_capture(self.graph, pool):
             self.output = fn(model, *self.static)
         self.k1_launches = cuda_attention.edge_attention_forward.launches - k1
         self.k2_launches = cuda_attention.edge_attention_backward.launches - k2

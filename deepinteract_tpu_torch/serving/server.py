@@ -9,7 +9,9 @@ Endpoints:
 
 * ``POST /predict`` — body is either a complex ``.npz`` upload
   (``data/io.py`` schema, ``Content-Type: application/octet-stream``) or
-  a JSON object ``{"npz_path": ...}``. Response: ``{"complex_name",
+  a JSON object ``{"npz_path": ...}`` or ``{"left_pdb": ..., "right_pdb":
+  ...}`` (paths the server reads; the pair is featurized on the server by
+  :mod:`deepinteract_tpu_torch.pipeline`). Response: ``{"complex_name",
   "trace_id", "n1", "n2", "bucket", "cached", "coalesced", "latency_ms",
   "contact_probs": [[...]]}``; ``?trace=1`` adds the request's latency
   decomposition (queue-wait / batch-assembly / compile / device,
@@ -124,12 +126,18 @@ def raw_from_npz_bytes(body: bytes) -> Dict:
 
 
 def raw_from_json(payload: Dict) -> Dict:
-    """JSON request body -> raw complex dict."""
+    """JSON request body -> raw complex dict: a complex ``npz_path``, or a
+    PDB pair featurized here on the host (without labels)."""
     if "npz_path" in payload:
         return load_complex_npz(payload["npz_path"])
+    if "left_pdb" in payload and "right_pdb" in payload:
+        from deepinteract_tpu_torch.pipeline.pair import convert_pdb_pair_to_complex
+
+        return convert_pdb_pair_to_complex(
+            payload["left_pdb"], payload["right_pdb"], with_labels=False)
     raise ValueError(
-        "JSON body must contain 'npz_path' (or upload npz bytes as "
-        "application/octet-stream)")
+        "JSON body must contain 'npz_path' or both 'left_pdb' and "
+        "'right_pdb' (or upload npz bytes as application/octet-stream)")
 
 
 class _QuietThreadingHTTPServer(ThreadingHTTPServer):

@@ -53,6 +53,7 @@ import torch
 
 from deepinteract_tpu_torch.data.graph import PairedComplex, ProteinGraph
 from deepinteract_tpu_torch.data.pipeline import tensors
+from deepinteract_tpu_torch.device import graph_capture
 from deepinteract_tpu_torch.ops import cuda_attention
 from deepinteract_tpu_torch.training.steps import (TrainState, eval_step_body,
                                                    train_step_body)
@@ -101,7 +102,7 @@ class _Entry:
             marks.append(time.perf_counter())
             before = _launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            with graph_capture(self.graph, pool):
                 marks.append(time.perf_counter())
                 self.output = body(self.static)
                 marks.append(time.perf_counter())

@@ -209,8 +209,9 @@ def test_bfloat16_policy_runs_on_cpu(carried):
 
 
 # The training lifecycle's, the model configurations', serving's, the
-# split-phase subsystems', the fleet's and the training input path's modules, named so that
-# the check below fails if one of them stops being importable on its own.
+# split-phase subsystems', the fleet's, the training input path's and the
+# featurization front end's modules, named so that the check below fails if
+# one of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
@@ -226,7 +227,9 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "serving.fleet", "serving.router", "serving.autoscaler", "serving.worker_stub",
     "obs.expfmt", "data.loader", "data.pipeline", "training.loop", "training.wandb_logger",
     "cli.train", "training.steps", "training.optim", "training.step_graphs",
-    "robustness.guards", "models.layers"))
+    "robustness.guards", "models.layers",
+    "pipeline.pdb", "pipeline.native", "pipeline.residue_features", "pipeline.postprocess",
+    "pipeline.pair", "data.analysis", "data.convert", "cli.build_dataset", "cli.analyze"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

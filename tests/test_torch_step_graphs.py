@@ -43,6 +43,38 @@ def test_step_graphs_refuse_a_cpu_state():
         StepGraphs(_state("cpu"))
 
 
+def test_graph_capture_holds_the_collector_off_until_the_capture_ends(monkeypatch):
+    """A cyclic collection inside a capture can destroy another CUDA graph
+    in the capturing thread, which invalidates the capture: every capture
+    of the port (step graphs, serving graphs) goes through
+    ``device.graph_capture``, which keeps the collector off from before
+    ``torch.cuda.graph`` begins until after it ends, and restores it on an
+    error too."""
+    import contextlib
+    import gc
+
+    from deepinteract_tpu_torch.device import graph_capture
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None, capture_error_mode="global"):
+        seen.append(("begin", gc.isenabled(), pool, capture_error_mode))
+        yield
+        seen.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    assert gc.isenabled()
+    with graph_capture("g", pool="p"):
+        seen.append(("body", gc.isenabled()))
+    assert gc.isenabled()
+    assert seen == [("begin", False, "p", "thread_local"), ("body", False), ("end", False)]
+    with pytest.raises(RuntimeError, match="capture failed"):
+        with graph_capture("g"):
+            raise RuntimeError("capture failed")
+    assert gc.isenabled()
+
+
 @pytest.mark.cuda
 def test_replay_sees_weights_restored_or_averaged_after_its_capture():
     if not torch.cuda.is_available():

@@ -117,6 +117,94 @@ def random_variables(jcfg: JaxModelConfig, jcx, seed: int = 0) -> dict:
         jax.random.PRNGKey(0), jcx.graph1, jcx.graph2, train=False)), seed)
 
 
+# ---------------------------------------------------------------------------
+# PDB writers (tests/test_torch_pipeline.py, tests/test_torch_builder_cli.py):
+# the same files go through both packages' featurizers.
+# ---------------------------------------------------------------------------
+
+def write_helix_pdb(path, n_res=12, chain="A"):
+    """Synthetic ideal alpha-helix poly-alanine PDB (right-handed, 100
+    degrees/residue, 1.5 A rise): a copy of ``tests/test_pipeline.py``'s
+    ``_write_helix_pdb``."""
+    lines = []
+    serial = 1
+    atom_r = {"N": 1.56, "CA": 2.28, "C": 1.68, "O": 2.00, "CB": 3.30}
+    atom_dphi = {"N": -0.48, "CA": 0.0, "C": 0.50, "O": 0.70, "CB": -0.2}
+    atom_dz = {"N": -0.60, "CA": 0.0, "C": 0.65, "O": 1.80, "CB": -0.5}
+    for i in range(n_res):
+        phi0 = np.radians(100.0) * i
+        z0 = 1.5 * i
+        for name in ("N", "CA", "C", "O", "CB"):
+            phi = phi0 + atom_dphi[name]
+            x = atom_r[name] * np.cos(phi)
+            y = atom_r[name] * np.sin(phi)
+            z = z0 + atom_dz[name]
+            el = name[0]
+            lines.append(
+                f"ATOM  {serial:5d} {name:<4s} ALA {chain}{i + 1:4d}    "
+                f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          {el:>2s}"
+            )
+            serial += 1
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\nEND\n")
+    return path
+
+
+# Heavy side-chain atoms of the 20 standard residues (PDB names).
+SIDE_CHAINS = {
+    "ALA": ("CB",), "GLY": (), "SER": ("CB", "OG"), "CYS": ("CB", "SG"),
+    "VAL": ("CB", "CG1", "CG2"), "THR": ("CB", "OG1", "CG2"),
+    "LEU": ("CB", "CG", "CD1", "CD2"), "ILE": ("CB", "CG1", "CG2", "CD1"),
+    "MET": ("CB", "CG", "SD", "CE"), "PRO": ("CB", "CG", "CD"),
+    "PHE": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ"),
+    "TYR": ("CB", "CG", "CD1", "CD2", "CE1", "CE2", "CZ", "OH"),
+    "TRP": ("CB", "CG", "CD1", "CD2", "NE1", "CE2", "CE3", "CZ2", "CZ3", "CH2"),
+    "ASP": ("CB", "CG", "OD1", "OD2"), "GLU": ("CB", "CG", "CD", "OE1", "OE2"),
+    "ASN": ("CB", "CG", "OD1", "ND2"), "GLN": ("CB", "CG", "CD", "OE1", "NE2"),
+    "LYS": ("CB", "CG", "CD", "CE", "NZ"), "ARG": ("CB", "CG", "CD", "NE", "CZ", "NH1", "NH2"),
+    "HIS": ("CB", "CG", "ND1", "CD2", "CE1", "NE2"),
+}
+
+
+def mixed_chain_lines(n_res, chain="A", x0=0.0, first=0, serial=1):
+    """ATOM records of a helix of ``n_res`` residues cycling through the 20
+    standard types from type ``first``, side chains pointing away from the
+    axis, which runs along z through (x0, 0)."""
+    resnames = list(SIDE_CHAINS)
+    backbone = {"N": (1.56, -0.48, -0.60), "CA": (2.28, 0.0, 0.0), "C": (1.68, 0.50, 0.65),
+                "O": (2.00, 0.70, 1.80)}
+    lines = []
+    for i in range(n_res):
+        resname = resnames[(first + i) % len(resnames)]
+        phi0, z0 = np.radians(100.0) * i, 1.5 * i
+        atoms = [(name, r, phi0 + dphi, z0 + dz) for name, (r, dphi, dz) in backbone.items()]
+        atoms += [(name, 3.3 + 1.1 * k, phi0 - 0.2 + 0.3 * (k % 3 - 1), z0 - 0.5 + 0.4 * (k % 2))
+                  for k, name in enumerate(SIDE_CHAINS[resname])]
+        for name, r, phi, z in atoms:
+            x, y = x0 + r * np.cos(phi), r * np.sin(phi)
+            lines.append(f"ATOM  {serial:5d} {name:<4s} {resname} {chain}{i + 1:4d}    "
+                         f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          {name[0]:>2s}")
+            serial += 1
+    return lines
+
+
+def write_mixed_pdb(path, n_res, chain="A", x0=0.0, first=0):
+    """One mixed-residue helix (``mixed_chain_lines``) as a PDB file."""
+    with open(path, "w") as f:
+        f.write("\n".join(mixed_chain_lines(n_res, chain, x0, first)) + "\nEND\n")
+    return path
+
+
+def write_bound_pdb(path, n1, n2, x0=11.0):
+    """Two mixed-residue helices, chains A and B, ``x0`` apart: one bound
+    complex whose side chains touch."""
+    a = mixed_chain_lines(n1, "A")
+    b = mixed_chain_lines(n2, "B", x0=x0, first=7, serial=len(a) + 1)
+    with open(path, "w") as f:
+        f.write("\n".join(a) + "\nTER\n" + "\n".join(b) + "\nEND\n")
+    return path
+
+
 def wait_until(cond, timeout: float = 30.0, poll: float = 0.002) -> None:
     """Poll ``cond`` until it holds (the serving tests' event-driven waits:
     a poll, never a fixed sleep); fails after ``timeout`` seconds."""
