@@ -114,7 +114,8 @@ Phases, in order; any failure exits non-zero:
      chain twice (3 encodes) and its control score; the ``screen``,
      ``index`` (build, verify), ``query``, ``assemble``, ``calibrate`` (ECE
      lower after the fit) and ``predict --top_k --calibration`` CLIs, each
-     last line through ``tools/check_cli_contract.py``; encode ms per chain
+     last line through ``tools/check_cli_contract.py`` (the screen with two
+     cache entries, so that embeddings spill to disk); encode ms per chain
      and decode ms per pair per key (replay device time), the screen's
      pairs a second and its device time, and 16 of its pairs through
      ``engine.predict``.
@@ -152,8 +153,9 @@ Phases, in order; any failure exits non-zero:
      histories (timings aside), the visited order equal to the loader's
      run-granular plan, exact (K1, K2, CSR builds) around each run, K1 and
      K2 at 4 x the steps of dispatches 1-2 (and of the warm-up steps of a
-     key first captured there) in the exported Chrome trace with
-     its ``step#n``, ``device_step`` and ``h2d`` ranges, run A's span log
+     key first captured there) in the exported Chrome trace, read through
+     ``obs/device``, with its ``step#n``, ``device_step`` and ``h2d``
+     ranges and the trainer's ``di_train_profile_*`` gauges, run A's span log
      with one ``step`` per dispatch, the viz images, the packs reused by a
      third run that a ``data.place`` fault plan ends non-zero with
      ``PlacementError``; each run's epoch wall, data_wait, h2d and device
@@ -189,11 +191,26 @@ Phases, in order; any failure exits non-zero:
      2) at its capture; ``cli.build_dataset`` over the four pairs,
      ``cli.analyze stats`` and ``lengths``, and a ``BucketedLoader`` pass
      over the tree. At most 60 s.
+ 15. fsck and device-time attribution over what phases 10-12 left on
+     disk, in process: the trainer's ``di_train_profile_*`` gauges of
+     phase 12's profiled run (> 0, its ``profile attribution:`` log line);
+     ``cli.attribute --census decoder`` over that window and its span log
+     (the ``attribution`` contract; K1 and K2 counted as in the trace and
+     each launched inside a ``device_step``; attributed plus unattributed
+     time equal to the total, the total within the window's wall; the
+     trace's ``device_step`` wall within 10% of the span log's);
+     ``cli.fsck`` rc 0 with nothing corrupt on phase 12's checkpoint
+     directories and phases 10-11's work directory, then on a copy with a
+     truncated ``state.pt`` and a flipped byte in ``trainer_state.json``:
+     rc 1, and rc 0 with both quarantined by ``--quarantine``; per bucket
+     key, the replayed train step's top kernel families and its device
+     share by class.
 A phase that fails prints ``chip_smoke: phase <n> failed: <reason>`` on
 stdout and the run exits 1; a watchdog ends a run still going after
 ``SCRIPT_LIMIT_S`` the same way. The line before the last is the card's
 name and power limit; before it, a ``{"kernels": [...]}`` JSON line,
-before that phase 14's ``{"frontend": {...}}`` summary, before that
+before that phase 15's ``{"fsck_attribution": {...}}`` summary, before
+that phase 14's ``{"frontend": {...}}`` one, before that
 phase 12's ``{"dispatch":
 {...}}`` summary, before that phase 13's ``{"step_graphs": {...}}`` one,
 before that phase 11's ``{"fleet": {...}}`` summary,
@@ -206,6 +223,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import http.client
@@ -214,6 +232,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -245,6 +264,8 @@ from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import ModelConfig
 from deepinteract_tpu_torch.models.stem import PairFactors
 from deepinteract_tpu_torch.models.policy import set_backend_precision
+from deepinteract_tpu_torch.obs import attribution as obs_attr
+from deepinteract_tpu_torch.obs import device as obs_device
 from deepinteract_tpu_torch.ops import attention as plain
 from deepinteract_tpu_torch.ops import cuda_attention
 from deepinteract_tpu_torch.robustness import artifacts, faults
@@ -1182,7 +1203,10 @@ def run_lifecycle(raw, seed, device, exact: bool, flags=(), sizes=COMPLEXES,
                 "epochs": epochs}
 
 
-def time_checkpoint(state, runs: int = 5) -> dict:
+CHECKPOINT_TIME_RUNS = 2  # saves and restores timed (5 before the fsck phase)
+
+
+def time_checkpoint(state, runs: int = CHECKPOINT_TIME_RUNS) -> dict:
     """A flagship train state's epoch-boundary save, synchronous: the host
     snapshot (device to host copy) and the write of best/ and last/ (two
     step directories, each payload + fsync + rename + integrity sidecar);
@@ -1394,7 +1418,14 @@ def check_deeplab_stems(model, raw, device) -> tuple:
     return diff, spread
 
 
-def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, split=True) -> dict:
+# Untimed steps before a config's timed train step: the epoch before it ran
+# the same shapes in process (2, and 1 for the six-tile step, before the
+# fsck phase).
+CONFIG_TRAIN_WARMUP = 1
+
+
+def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=CONFIG_TRAIN_WARMUP,
+                     split=True) -> dict:
     """``cli.train`` for one epoch on ``sizes`` with ``flags``: exact launch
     counts, peak memory, finite losses; then a train step of the largest
     complex timed on its own (median of ``runs`` after ``warmup``)."""
@@ -1427,7 +1458,7 @@ def run_config_train(name, flags, sizes, seed, device, smi, runs, warmup=2, spli
     log(f"  cli.train {name} 1 epoch: {steps} train steps, launches K1 {counts[0]} K2 "
         f"{counts[1]}, CSR builds {counts[2]}, peak {peak:.3f} GiB, train_loss "
         f"{epoch['train_loss']:.4f}, val_ce {epoch['val_ce']:.4f}; train step {b1}/{b2}: "
-        f"{t['train_step_ms']:.3f} ms (median of {runs}{parts}), peak "
+        f"{t['train_step_ms']:.3f} ms (median of {runs} after {warmup} untimed{parts}), peak "
         f"{t['max_memory_allocated_gb']:.3f} GiB; [{smi}]")
     return {"launches": counts, "train_steps": steps, "epoch_peak_gib": peak,
             "buckets": (int(b1), int(b2)), **t}
@@ -1561,7 +1592,7 @@ def run_remat(cfg, seed, device, smi, runs) -> dict:
     for policy in REMAT_POLICIES:
         out[f"train_six_tiles_{policy}"] = run_config_train(
             f"tiled_remat_{policy}", ["--tile_pair_map", "--remat", "--remat_policy", policy],
-            [TILED_COMPLEX], seed, device, smi, runs=1, warmup=1, split=False)
+            [TILED_COMPLEX], seed, device, smi, runs=1, warmup=0, split=False)
         torch.cuda.empty_cache()
     return out
 
@@ -1804,8 +1835,9 @@ def run_supervisor(seed, flags=(), hang_timeout_s=HANG_TIMEOUT_S) -> dict:
 SERVE_WARMUP = ((128, 128, 1), (256, 192, 1), (64, 256, 1), (256, 192, 4),
                 TILED_COMPLEX + (1,))
 # Timed requests per bucket (the tiled key's too), each side: 10, cut to 5
-# with the step-graph phase and to 3 with the front-end phase.
-SERVE_RUNS = 3
+# with the step-graph phase, to 3 with the front-end phase and to 2 with the
+# fsck phase.
+SERVE_RUNS = 2
 
 
 def _served_batch(engine, raws):
@@ -1850,37 +1882,20 @@ def check_replays(engine, plain_model, batches, device) -> dict:
 
 
 def profile_replay(engine, key, *inputs) -> dict:
-    """One replay of ``key`` on ``inputs`` under torch.profiler: K1 kernels
-    and all device kernels listed in it (0 and 0 if the profiler lists no
-    kernel inside a graph)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One replay of ``key`` on ``inputs`` under torch.profiler
+    (``_profile_kernels``): K1 kernels and all device kernels listed in it
+    (0 and 0 if the profiler lists no kernel inside a graph)."""
     entry = engine._entries[key]
     with engine._exec_lock:
-        entry.replay(*inputs)  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            entry.replay(*inputs)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"k1": sum("edge_attention_fwd" in e.name for e in kernels),
-            "kernels": len(kernels)}
+        return _profile_kernels(lambda: entry.replay(*inputs))
 
 
 def profile_graph(engine, entry) -> dict:
     """One replay of an entry's graph on its static inputs under
-    torch.profiler: K1 kernels and all device kernels listed in it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (``_profile_kernels``): K1 kernels and all device kernels
+    listed in it."""
     with engine._exec_lock:
-        entry.graph.replay()  # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            entry.graph.replay()
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"k1": sum("edge_attention_fwd" in e.name for e in kernels),
-            "kernels": len(kernels)}
+        return _profile_kernels(entry.graph.replay)
 
 
 def _post(host, port, path, body, headers, timeout=120):
@@ -2323,9 +2338,13 @@ def run_split_phase_clis(seed, work, smi) -> dict:
 
     lib = ["--synthetic_len", "40,60", "--screen_batch", str(SCREEN_BATCH), "--seed", str(seed)]
     out = {}
+    # Two cache entries: embeddings spill to disk (phase 15's fsck reads them).
     rec = _check_contract("screen", _run_cli(screen.main, [
-        "--synthetic_chains", "6", *lib, "--out", os.path.join(work, "screen")]))
+        "--synthetic_chains", "6", *lib, "--out", os.path.join(work, "screen"),
+        "--emb_cache_entries", "2", "--emb_cache_dir", os.path.join(work, "emb_cache")]))
     check(rec["pairs_scored"] == 15 and rec["encode_reuse_ratio"] == 5.0, f"screen {rec}")
+    spills = [n for n in os.listdir(os.path.join(work, "emb_cache")) if n.endswith(".npz")]
+    check(len(spills) >= 1, "screen --emb_cache_entries 2 spilled nothing")
     out["screen"] = rec["value"]
     idx = os.path.join(work, "cli_index")
     rec = _check_contract("index", _run_cli(index.main, [
@@ -2581,7 +2600,7 @@ FLEET_WARMUP = "128x128x1,256x192x1"  # the engine workers' warm-up keys
 FLEET_COUNTS = (4, 0, 2)  # (K1, K2, CSR builds) per flagship capture in a worker
 FLEET_LOAD_THREADS = 16  # concurrent /predict clients under the SIGKILL
 ROLLOVER_LOAD_THREADS = 8  # and under the rollover
-FLEET_TIME_RUNS = 3  # routed and direct requests per bucket (10, 5 before the front end)
+FLEET_TIME_RUNS = 2  # routed and direct requests per bucket (10, 5, then 3 before the fsck phase)
 # --fleet_warm_timeout_s: the aborted rollover waits it out. A rollover of
 # two flagship workers under 16 clients took 24.3 s (PR 9's first run).
 FLEET_WARM_TIMEOUT_S = 32.0
@@ -2903,6 +2922,14 @@ def run_fleet(cfg, seed, device, smi, work, route_files) -> dict:
     fleet_dir = os.path.join(work, "fleet")
     err_path = os.path.join(work, "fleet_router.log")
     err = open(err_path, "w")
+
+    def log_fleet(why):
+        """The router's and every worker's log tail, and the fleet state."""
+        log(f"  {why}; router log:\n{_tail(err_path)}")
+        for name in sorted(os.listdir(fleet_dir)) if os.path.isdir(fleet_dir) else ():
+            if name.endswith((".log", "fleet_state.json")):
+                log(f"  {name}:\n{_tail(os.path.join(fleet_dir, name))}")
+
     t_start = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "deepinteract_tpu_torch.cli.serve", "--workers", "2",
@@ -3090,10 +3117,7 @@ def run_fleet(cfg, seed, device, smi, work, route_files) -> dict:
                                       "rollover_peak": peak["used"]},
                     "routed_vs_in_process": routed, "latency_ms": latency})
     except BaseException:
-        log(f"  fleet failed; router log:\n{_tail(err_path)}")
-        for name in sorted(os.listdir(fleet_dir)) if os.path.isdir(fleet_dir) else ():
-            if name.endswith(".log"):
-                log(f"  {name}:\n{_tail(os.path.join(fleet_dir, name))}")
+        log_fleet("fleet failed")
         raise
     finally:
         if proc.poll() is None:
@@ -3108,6 +3132,8 @@ def run_fleet(cfg, seed, device, smi, work, route_files) -> dict:
             ref.close()
     check(proc.returncode == 0, f"the fleet exited {proc.returncode}")
     record = _check_contract("fleet", stdout)
+    if not (record["restarts"] == 1 and record["rollovers"] == 1 and record["ok"]):
+        log_fleet("fleet record off")
     check(record["restarts"] == 1 and record["rollovers"] == 1 and record["ok"],
           f"fleet/v1 {record}")
     out["contract"] = {k: record[k] for k in ("restarts", "rollovers", "failovers", "routed")}
@@ -3223,21 +3249,85 @@ def _pack_stamps(pack_root) -> dict:
     return out
 
 
-def _trace_counts(profile_dir) -> dict:
-    """K1 kernels, K2 kernels (its second pass, one per launch) and the
-    device_step and h2d ranges of the exported Chrome trace."""
-    with open(os.path.join(profile_dir, "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
-    names = [e.get("name", "") for e in events]
-    return {"k1": sum("edge_attention_fwd" in n for n in kernels),
-            "k2": sum("edge_attention_bwd_dst" in n for n in kernels),
-            "kernels": len(kernels), "device_step": names.count("device_step"),
-            "h2d": names.count("h2d"),
-            "steps": sorted({n for n in names if n.startswith("step#")})}
+K1_KERNEL = "edge_attention_fwd"  # both head layouts' kernels
+K2_KERNEL = "edge_attention_bwd_dst"  # K2's second pass: one per launch
 
 
-def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
+def _replay_breakdown(ops, replays: int) -> dict:
+    """Kernels, device time, top five families and device share by class
+    per replay of ``replays`` replays of one graph, from their ops."""
+    agg = obs_attr.aggregate_ops(obs_device.DeviceTrace(ops=ops, phases=[], processes={}),
+                                 top_n=5)
+    by_class = collections.defaultdict(float)
+    for row in agg["by_opcode"]:
+        by_class[row["op_class"]] += row["share"]
+    return {"replays": replays, "kernels": len(ops) / replays,
+            "device_ms": sum(op.dur_us for op in ops) / 1e3 / replays,
+            "top_families": [{k: r[k] for k in ("opcode", "op_class", "count", "total_ms",
+                                                "share")} for r in agg["by_opcode"][:5]],
+            "class_share": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+            "memcpy_share": sum(r["share"] for r in agg["by_opcode"]
+                                if r["opcode"].startswith(("Memcpy", "Memset")))}
+
+
+def trace_summary(profile_dir, step_keys) -> dict:
+    """Phase 12's exported Chrome trace through ``obs/device``: its K1 and
+    K2 kernels and the phase each was launched in (``obs/attribution``),
+    its device events, windows and ``step#n`` ranges, its wall; and the
+    replayed train steps (the kernels that one ``cudaGraphLaunch``
+    launched), grouped by the bucket key of the ``step#n`` range that holds
+    the launch (``step_keys``: range name -> key): per key, per replay,
+    their kernels, device time, top families and device share by class."""
+    path = obs_device.find_trace_files(profile_dir)[0]
+    raw = obs_device.load_trace_json(path)
+    trace = obs_device.parse_trace(raw)
+    phases = obs_attr.assign_phases(trace)
+    k1 = collections.Counter(str(p) for op, p in zip(trace.ops, phases) if K1_KERNEL in op.name)
+    k2 = collections.Counter(str(p) for op, p in zip(trace.ops, phases) if K2_KERNEL in op.name)
+    windows = collections.Counter(w.name for w in trace.phases)
+    step_ranges = [(str(e["name"]), float(e.get("ts", 0.0)),
+                    float(e.get("ts", 0.0)) + float(e.get("dur", 0.0)), e.get("tid"))
+                   for e in raw["traceEvents"]
+                   if e.get("cat") == obs_device.WINDOW_CATEGORY
+                   and str(e.get("name", "")).startswith("step#")]
+    by_launch = collections.defaultdict(list)
+    for op in trace.ops:
+        if op.launch.startswith("cudaGraphLaunch"):
+            by_launch[(op.anchor_us, op.anchor_tid)].append(op)
+    by_key = collections.defaultdict(list)
+    for (t_us, tid), ops in by_launch.items():
+        names = [n for n, lo, hi, rtid in step_ranges
+                 if lo <= t_us < hi and obs_device._as_int(rtid) == tid]
+        by_key[step_keys.get(names[0], "?") if names else "?"].append(ops)
+    replays = {key: _replay_breakdown([op for ops in groups for op in ops], len(groups))
+               for key, groups in sorted(by_key.items())}
+    return {"k1": sum(k1.values()), "k2": sum(k2.values()), "k1_phases": dict(k1),
+            "k2_phases": dict(k2), "device_events": len(trace.ops),
+            "device_ms": trace.total_device_us / 1e3, "extent_ms": trace.extent_us / 1e3,
+            "device_step": windows["device_step"], "h2d": windows["h2d"],
+            "steps": sorted({n for n, *_ in step_ranges}), "replays": len(by_launch),
+            "replays_by_key": replays}
+
+
+class _Tee(io.TextIOBase):
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+PROFILE_GAUGES = ("di_train_profile_device_seconds_per_dispatch",
+                  "di_train_profile_device_total_seconds")
+
+
+def run_dispatch_loop(seed, device, smi, work, flags=()) -> dict:
     """Phase 12: ``cli.train`` at the flagship width with K train steps and
     K eval batches per dispatch, inline (run A) and with the placement
     thread, packs, a profile window, viz and an in-process writer (run B),
@@ -3245,136 +3335,146 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
     per-step losses, the visited order of the loader's run-granular plan
     (F7), exact launch counts, the trace's kernels and ranges, the span
     log's dispatches, pack reuse, and a ``data.place`` fault surfacing as
-    ``PlacementError``. ``flags`` go to every command (a CPU rehearsal's
-    small model and ``--device cpu``)."""
+    ``PlacementError``. Everything is written under ``work``, which phase
+    15 reads. ``flags`` go to every command (a CPU rehearsal's small model
+    and ``--device cpu``)."""
     from deepinteract_tpu_torch.obs import metrics as obs_metrics
     from deepinteract_tpu_torch.obs import spans as obs_spans
 
-    pinned_gauge = obs_metrics.get_registry().gauge("di_data_pinned_peak_bytes")
+    registry = obs_metrics.get_registry()
+    pinned_gauge = registry.gauge("di_data_pinned_peak_bytes")
 
     log("== phase 12: training dispatch loop and input path (cli.train, flagship width, "
         f"--steps_per_dispatch {DISPATCH_K}, --eval_batches_per_dispatch {DISPATCH_EVAL_K})")
     t_phase = time.perf_counter()
     obs_spans.close()  # the runs open their own span logs
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as work:
-        root, packs, prof = (os.path.join(work, d) for d in ("data", "packs", "profile"))
-        write_dispatch_dataset(root, seed)
-        def argv(ckpt, *extra):
-            return ["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
-                    "--log_every", "0", "--deterministic", "--steps_per_dispatch",
-                    str(DISPATCH_K), "--eval_batches_per_dispatch", str(DISPATCH_EVAL_K),
-                    "--ckpt_dir", os.path.join(work, ckpt), *extra, *flags]
+    for name in PROFILE_GAUGES:
+        registry.gauge(name).set(0.0)
+    root, packs, prof = (os.path.join(work, d) for d in ("data", "packs", "profile"))
+    write_dispatch_dataset(root, seed)
+    def argv(ckpt, *extra):
+        return ["--dips_root", root, "--num_epochs", "1", "--seed", str(seed),
+                "--log_every", "0", "--deterministic", "--steps_per_dispatch",
+                str(DISPATCH_K), "--eval_batches_per_dispatch", str(DISPATCH_EVAL_K),
+                "--ckpt_dir", os.path.join(work, ckpt), *extra, *flags]
 
-        prefetch_flags = ("--device_prefetch", "--packed_cache_dir", packs, "--profile_dir",
-                          prof, "--profile_steps", str(DISPATCH_PROFILE_STEPS),
-                          "--viz_every_n_epochs", "1")
-        runs, visited, walls = {}, {}, {}
-        writer = _Recorder()
-        real_writer = train_cli.make_metric_writer
-        for name, extra in (("A", ()), ("B", prefetch_flags)):
-            visited[name] = []
-            train_cli.make_metric_writer = (lambda args: writer) if name == "B" \
-                else real_writer
-            pinned_gauge.set(0)
-            try:
-                with _visited(visited[name]):
-                    t0 = time.perf_counter()
-                    runs[name] = _counted(lambda: train_cli.run(train_cli.parse_args(
-                        argv(name, *extra))))
-                    walls[name] = time.perf_counter() - t0
-            finally:
-                train_cli.make_metric_writer = real_writer
-            runs[name] += (int(pinned_gauge.value()),)
-        (hist_a, test_a), counts_a, _ = runs["A"]
-        (hist_b, test_b), counts_b, pinned_peak = runs["B"]
-
-        # A third run B on the same packs under a data.place fault plan: it
-        # must reuse them and end non-zero with PlacementError. It starts
-        # now and is waited for after the checks below.
-        stamps = _pack_stamps(packs)
-        env = {k: v for k, v in os.environ.items() if k != "DI_FAULTS"}
-        env["DI_FAULTS"] = "data.place=1"
-        t_fault = time.perf_counter()
-        fault = subprocess.Popen([sys.executable, "-m", "deepinteract_tpu_torch.cli.train",
-                                  *argv("C", *prefetch_flags)], env=env, text=True,
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+    prefetch_flags = ("--device_prefetch", "--packed_cache_dir", packs, "--profile_dir",
+                      prof, "--profile_steps", str(DISPATCH_PROFILE_STEPS),
+                      "--viz_every_n_epochs", "1")
+    runs, visited, walls = {}, {}, {}
+    writer = _Recorder()
+    real_writer = train_cli.make_metric_writer
+    tee = _Tee(sys.stdout)
+    for name, extra in (("A", ()), ("B", prefetch_flags)):
+        visited[name] = []
+        train_cli.make_metric_writer = (lambda args: writer) if name == "B" \
+            else real_writer
+        pinned_gauge.set(0)
         try:
-            # The same weights, AdamW moments and schedule, bitwise.
-            finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
-                None, which="last") for n in ("A", "B")}
-            state_diff = _tree_diff(finals["A"], finals["B"])
-            check(state_diff == 0.0, f"inline and --device_prefetch runs differ: last/ state max "
-                  f"|diff| {state_diff:.3g}")
-            steps = {n: _read_visited(v) for n, v in visited.items()}
-            check([s[2] for s in steps["A"]] == [s[2] for s in steps["B"]],
-                  "inline and --device_prefetch runs differ in their per-step losses")
-            for key in hist_a[0]:
-                if key.endswith("seconds") or key.startswith("tele_"):  # timings
-                    continue
-                check(_same_metric(hist_a[0][key], hist_b[0][key], 0.0),
-                      f"history {key}: inline {hist_a[0][key]} vs prefetch {hist_b[0][key]}")
-            check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
-                  f"test metrics differ: {test_a} vs {test_b}")
-            # F7 on the card: the visited order is the run-granular plan.
-            plan_loader = BucketedLoader(DIPSDataset(root, "train"), shuffle=True,
-                                         drop_remainder=True, seed=seed, dispatch_run=DISPATCH_K)
-            lengths = plan_loader.dataset.lengths()
-            plan_sizes = [tuple(lengths[i]) for _, chunk in plan_loader.epoch_plan(0)
-                          for i in chunk]
-            for n in ("A", "B"):
-                check([s[:2] for s in steps[n]] == plan_sizes,
-                      f"run {n}: visited {[s[:2] for s in steps[n]]}, plan {plan_sizes}")
-            dispatches = _dispatches(plan_loader)
-            check(sorted(dispatches) == [1, 1, 1, 1, DISPATCH_K, DISPATCH_K],
-                  f"dispatches {dispatches}")
-            # Exact launch counts: the step graphs' captures (2 train keys, 3
-            # eval keys) and run B's eager viz forward.
-            train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
-            for n, counts, extra_evals in (("A", counts_a, 0), ("B", counts_b, 1)):
-                _expect_graphed(f"run {n}", counts, train_b, eval_b, extra_evals)
-            # The profile window: dispatches [1, 1 + profile_steps). A key's
-            # first dispatch runs its warm-up steps eagerly before the capture.
-            window = _dispatches(plan_loader, buckets=True)[:1 + DISPATCH_PROFILE_STEPS]
-            first = {}
-            for i, (bucket, _) in enumerate(window):
-                first.setdefault(bucket, i)
-            warmups = step_graphs.WARMUP_RUNS * sum(i >= 1 for i in first.values())
-            window_steps = sum(d for _, d in window[1:])
-            trace = _trace_counts(prof)
-            want = LAUNCHES_PER_ENCODE_PAIR * (window_steps + warmups)
-            check((trace["k1"], trace["k2"]) == (want, want),
-                  f"trace K1/K2 kernels {trace['k1']}/{trace['k2']}, expected {want} each "
-                  f"({window_steps} steps in dispatches 1..{DISPATCH_PROFILE_STEPS}, "
-                  f"{warmups} warm-up steps)")
-            check(trace["device_step"] >= DISPATCH_PROFILE_STEPS and trace["h2d"] >= 1,
-                  f"trace ranges: device_step {trace['device_step']}, h2d {trace['h2d']}")
-            check(trace["steps"] == [f"step#{i}" for i in range(1, 1 + DISPATCH_PROFILE_STEPS)],
-                  f"trace step ranges {trace['steps']}")
-            # The span log: 6 train dispatches with their leaves.
-            events = obs_spans.read_events(os.path.join(work, "A", "obs", "events.jsonl"))
-            counted = {k: sum(e["name"] == k for e in events)
-                       for k in ("step", "device_step", "h2d", "data_wait")}
-            check(counted["step"] == counted["device_step"] == counted["h2d"] == len(dispatches)
-                  and counted["data_wait"] >= 1,
-                  f"span log of run A: {counted}, expected {len(dispatches)} dispatches")
-            check([e["n"] for e in events if e["name"] == "step"] == dispatches,
-                  "span log step sizes differ from the plan's dispatches")
-            # Viz and scalars through the in-process writer.
-            check([t for t, *_ in writer.images] == ["val_predicted_contact_probs",
-                                                     "val_true_contacts"]
-                  and writer.images[0][1] == (*DISPATCH_VAL[0], 1),
-                  f"viz images {writer.images}")
-            check(any(t == "val_ce" for t, *_ in writer.scalars), "no val_ce scalar written")
-            fault_out, _ = fault.communicate(timeout=600)
+            with _visited(visited[name]), \
+                    contextlib.redirect_stdout(tee if name == "B" else sys.stdout):
+                t0 = time.perf_counter()
+                runs[name] = _counted(lambda: train_cli.run(train_cli.parse_args(
+                    argv(name, *extra))))
+                walls[name] = time.perf_counter() - t0
         finally:
-            if fault.poll() is None:  # a failed check above: stop it
-                fault.kill()
-                fault.communicate()
-        fault_s = time.perf_counter() - t_fault
-        check(fault.returncode != 0 and "PlacementError" in fault_out,
-              f"data.place run: rc {fault.returncode}, {fault_out[-800:]}")
-        check(_pack_stamps(packs) == stamps, "the third run B rebuilt a pack")
+            train_cli.make_metric_writer = real_writer
+        runs[name] += (int(pinned_gauge.value()),)
+    # Run B's profile window, attributed by the trainer on the spot.
+    gauges = {n: registry.gauge(n).value() for n in PROFILE_GAUGES}
+    attribution_log = [line for line in tee.buf.getvalue().splitlines()
+                       if line.startswith("profile attribution")]
+    (hist_a, test_a), counts_a, _ = runs["A"]
+    (hist_b, test_b), counts_b, pinned_peak = runs["B"]
+
+    # A third run B on the same packs under a data.place fault plan: it
+    # must reuse them and end non-zero with PlacementError. It starts
+    # now and is waited for after the checks below.
+    stamps = _pack_stamps(packs)
+    env = {k: v for k, v in os.environ.items() if k != "DI_FAULTS"}
+    env["DI_FAULTS"] = "data.place=1"
+    t_fault = time.perf_counter()
+    fault = subprocess.Popen([sys.executable, "-m", "deepinteract_tpu_torch.cli.train",
+                              *argv("C", *prefetch_flags)], env=env, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        # The same weights, AdamW moments and schedule, bitwise.
+        finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
+            None, which="last") for n in ("A", "B")}
+        state_diff = _tree_diff(finals["A"], finals["B"])
+        check(state_diff == 0.0, f"inline and --device_prefetch runs differ: last/ state max "
+              f"|diff| {state_diff:.3g}")
+        steps = {n: _read_visited(v) for n, v in visited.items()}
+        check([s[2] for s in steps["A"]] == [s[2] for s in steps["B"]],
+              "inline and --device_prefetch runs differ in their per-step losses")
+        for key in hist_a[0]:
+            if key.endswith("seconds") or key.startswith("tele_"):  # timings
+                continue
+            check(_same_metric(hist_a[0][key], hist_b[0][key], 0.0),
+                  f"history {key}: inline {hist_a[0][key]} vs prefetch {hist_b[0][key]}")
+        check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
+              f"test metrics differ: {test_a} vs {test_b}")
+        # F7 on the card: the visited order is the run-granular plan.
+        plan_loader = BucketedLoader(DIPSDataset(root, "train"), shuffle=True,
+                                     drop_remainder=True, seed=seed, dispatch_run=DISPATCH_K)
+        lengths = plan_loader.dataset.lengths()
+        plan_sizes = [tuple(lengths[i]) for _, chunk in plan_loader.epoch_plan(0)
+                      for i in chunk]
+        for n in ("A", "B"):
+            check([s[:2] for s in steps[n]] == plan_sizes,
+                  f"run {n}: visited {[s[:2] for s in steps[n]]}, plan {plan_sizes}")
+        dispatches = _dispatches(plan_loader)
+        check(sorted(dispatches) == [1, 1, 1, 1, DISPATCH_K, DISPATCH_K],
+              f"dispatches {dispatches}")
+        # Exact launch counts: the step graphs' captures (2 train keys, 3
+        # eval keys) and run B's eager viz forward.
+        train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
+        for n, counts, extra_evals in (("A", counts_a, 0), ("B", counts_b, 1)):
+            _expect_graphed(f"run {n}", counts, train_b, eval_b, extra_evals)
+        # The profile window: dispatches [1, 1 + profile_steps). A key's
+        # first dispatch runs its warm-up steps eagerly before the capture.
+        window = _dispatches(plan_loader, buckets=True)[:1 + DISPATCH_PROFILE_STEPS]
+        first = {}
+        for i, (bucket, _) in enumerate(window):
+            first.setdefault(bucket, i)
+        warmups = step_graphs.WARMUP_RUNS * sum(i >= 1 for i in first.values())
+        window_steps = sum(d for _, d in window[1:])
+        trace = trace_summary(prof, {f"step#{i}": f"{b[0]}x{b[1]}"
+                                     for i, (b, _) in enumerate(window) if i >= 1})
+        want = LAUNCHES_PER_ENCODE_PAIR * (window_steps + warmups)
+        check((trace["k1"], trace["k2"]) == (want, want),
+              f"trace K1/K2 kernels {trace['k1']}/{trace['k2']}, expected {want} each "
+              f"({window_steps} steps in dispatches 1..{DISPATCH_PROFILE_STEPS}, "
+              f"{warmups} warm-up steps)")
+        check(trace["device_step"] >= DISPATCH_PROFILE_STEPS and trace["h2d"] >= 1,
+              f"trace ranges: device_step {trace['device_step']}, h2d {trace['h2d']}")
+        check(trace["steps"] == [f"step#{i}" for i in range(1, 1 + DISPATCH_PROFILE_STEPS)],
+              f"trace step ranges {trace['steps']}")
+        # The span log: 6 train dispatches with their leaves.
+        events = obs_spans.read_events(os.path.join(work, "A", "obs", "events.jsonl"))
+        counted = {k: sum(e["name"] == k for e in events)
+                   for k in ("step", "device_step", "h2d", "data_wait")}
+        check(counted["step"] == counted["device_step"] == counted["h2d"] == len(dispatches)
+              and counted["data_wait"] >= 1,
+              f"span log of run A: {counted}, expected {len(dispatches)} dispatches")
+        check([e["n"] for e in events if e["name"] == "step"] == dispatches,
+              "span log step sizes differ from the plan's dispatches")
+        # Viz and scalars through the in-process writer.
+        check([t for t, *_ in writer.images] == ["val_predicted_contact_probs",
+                                                 "val_true_contacts"]
+              and writer.images[0][1] == (*DISPATCH_VAL[0], 1),
+              f"viz images {writer.images}")
+        check(any(t == "val_ce" for t, *_ in writer.scalars), "no val_ce scalar written")
+        fault_out, _ = fault.communicate(timeout=600)
+    finally:
+        if fault.poll() is None:  # a failed check above: stop it
+            fault.kill()
+            fault.communicate()
+    fault_s = time.perf_counter() - t_fault
+    check(fault.returncode != 0 and "PlacementError" in fault_out,
+          f"data.place run: rc {fault.returncode}, {fault_out[-800:]}")
+    check(_pack_stamps(packs) == stamps, "the third run B rebuilt a pack")
     tele = {n: {k: h[0][k] for k in ("tele_data_wait_frac", "tele_data_wait_s", "tele_h2d_s",
                                      "tele_h2d_frac", "tele_device_frac", "tele_device_s",
                                      "tele_eval_s", "train_seconds", "epoch_seconds")}
@@ -3390,13 +3490,15 @@ def run_dispatch_loop(seed, device, smi, flags=()) -> dict:
     log(f"  prefetch: pinned bytes at the peak {pinned_peak} ({pinned_peak / 2 ** 20:.2f} "
         f"MiB); last/ state bitwise equal; {len(dispatches)} dispatches {dispatches}; trace "
         f"window {window_steps} steps, K1 {trace['k1']} K2 {trace['k2']} of "
-        f"{trace['kernels']} kernels; packs reused; data.place run exit "
+        f"{trace['device_events']} device events; packs reused; data.place run exit "
         f"{fault.returncode} with PlacementError ({fault_s:.1f} s, beside the checks); "
         f"card {smi}")
     log(f"  phase 12: {seconds:.1f} s")
     return {"launches": {"inline": counts_a, "prefetch": counts_b}, "dispatches": dispatches,
             "walls_s": walls, "telemetry": tele, "pinned_peak_bytes": pinned_peak,
-            "trace": trace, "window_steps": window_steps, "seconds": seconds}
+            "trace": trace, "window_steps": window_steps, "warmup_steps": warmups,
+            "profile_gauges": gauges, "attribution_log": attribution_log,
+            "work": work, "profile_dir": prof, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3439,13 +3541,21 @@ def _same_floats(a, b) -> bool:
 
 def _profile_kernels(fn) -> dict:
     """One call of ``fn`` under torch.profiler: K1 kernels, K2 kernels (its
-    second pass, one per launch), CSR builds and all device kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    second pass, one per launch), CSR builds and all device kernels. A
+    call before it runs in the profiler's warm-up step, whose events are
+    dropped: a session that records from its start misses some of the first
+    device events (an eval replay listed 6,153-6,160 that way and 6,219
+    after a warm-up step, on an H100), and on some hosts the loss reached
+    the replay's first CSR build."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"k1": sum("edge_attention_fwd" in n for n in names),
             "k2": sum("edge_attention_bwd_dst" in n for n in names),
@@ -3691,7 +3801,7 @@ FRONTEND_CHAINS = (180, 140)  # the PDB pair predicted and served: buckets 192 /
 FRONTEND_OFFSET = 11.0  # A between two helix axes: their side chains touch
 FRONTEND_BOUND = (90, 80)  # the bound two-chain file
 FRONTEND_BUILDER = ((40, 36), (52, 44), (60, 48), (34, 45))  # cli.build_dataset's pairs
-FRONTEND_TIMED_RUNS = 3  # PDB files -> map in process, median of
+FRONTEND_TIMED_RUNS = 2  # PDB files -> map in process, median of (3 before the fsck phase)
 FRONTEND_LIMIT_S = 60.0
 NATIVE_BAR = dict(rtol=1e-4, atol=1e-3)  # native vs numpy: the JAX tests/test_pipeline.py
 # Heavy side-chain atoms of the 20 standard residues (PDB names).
@@ -3987,6 +4097,152 @@ def run_frontend(seed, device, smi) -> dict:
             "seconds": seconds, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: fsck and device-time attribution over the artifacts of 10-12
+# ---------------------------------------------------------------------------
+
+CENSUS_PAD = 128  # the decoder census's square pad: the bucket of phase 12's first run
+ATTRIBUTION_BAR = 0.10  # trace vs span-log wall of device_step (the JAX test's bar)
+
+
+def _fsck(root, *flags) -> tuple:
+    """(rc, fsck/v1 record) of ``cli.fsck`` run in process on ``root``."""
+    from deepinteract_tpu_torch.cli import fsck
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fsck.main([root, *flags])
+    return rc, _check_contract("fsck", buf.getvalue())
+
+
+def run_fsck_attribution(device, smi, split_work, dispatch) -> dict:
+    """Phase 15: ``cli.attribute`` and ``cli.fsck`` in process over what
+    phases 10-12 left on disk. The trainer's ``di_train_profile_*`` gauges
+    of phase 12's run B (> 0, its log's ``profile attribution:`` line);
+    ``cli.attribute --census decoder`` over run B's window and span log: a
+    contract line, K1 and K2 counted as in the trace and each launched in a
+    ``device_step``, attributed plus unattributed time equal to the total,
+    the total within the window's wall, the trace's ``device_step`` wall
+    within 10% of the span log's; ``cli.fsck`` clean (rc 0, nothing
+    corrupt, something verified) on run A's and run B's checkpoint
+    directories and on phases 10-11's work directory (index shards,
+    embedding spills, calibration, assembly, fleet state and heartbeats);
+    on a copy of run B's with a truncated ``state.pt`` and a flipped byte
+    in ``trainer_state.json``: rc 1, then rc 0 with ``--quarantine`` and
+    both moved aside. Then the replayed train step's breakdown per bucket
+    key (every replay inside a ``step#n`` range): its top five kernel
+    families and its device share by class."""
+    from deepinteract_tpu_torch.cli import attribute
+
+    log("== phase 15: fsck and device-time attribution (cli.fsck, cli.attribute, the "
+        "trainer's profile gauges) over the artifacts of phases 10-12")
+    t_phase = time.perf_counter()
+    trace, work = dispatch["trace"], dispatch["work"]
+    gauges = dispatch["profile_gauges"]
+    check(all(v > 0 for v in gauges.values()), f"profile gauges after run B: {gauges}")
+    check(any(line.startswith("profile attribution:") for line in dispatch["attribution_log"]),
+          f"run B logged no profile attribution: {dispatch['attribution_log']}")
+
+    report_path = os.path.join(work, "op_attribution.json")
+    instances = dispatch["window_steps"] + dispatch["warmup_steps"]
+    t0 = time.perf_counter()
+    text = _run_cli(attribute.main, [
+        "--profile_dir", dispatch["profile_dir"], "--events",
+        os.path.join(work, "B", "obs", "events.jsonl"), "--census", "decoder",
+        "--census_pad", str(CENSUS_PAD), "--census_instances", str(instances),
+        "--device", device.type, "--out", report_path])
+    attribute_s = time.perf_counter() - t0
+    record = _check_contract("attribution", text)
+    with open(report_path) as f:
+        report = json.load(f)
+    counted = {k: sum(r["count"] for r in report["by_opcode"] if name in r["opcode"])
+               for k, name in (("k1", K1_KERNEL), ("k2", K2_KERNEL))}
+    check((counted["k1"], counted["k2"]) == (trace["k1"], trace["k2"]),
+          f"report K1/K2 {counted}, trace {trace['k1']}/{trace['k2']}")
+    check(set(trace["k1_phases"]) | set(trace["k2_phases"]) <= {"device_step"},
+          f"K1/K2 by launching phase: {trace['k1_phases']} / {trace['k2_phases']}")
+    attributed = sum(p["device_ms"] for p in report["phases"])
+    rounding = 1e-4 * (len(report["phases"]) + 2)
+    check(abs(attributed + report["unattributed_ms"] - report["total_device_ms"]) <= rounding,
+          f"attributed {attributed} + unattributed {report['unattributed_ms']} != total "
+          f"{report['total_device_ms']}")
+    check(0 < report["total_device_ms"] <= trace["extent_ms"],
+          f"device time {report['total_device_ms']} ms, window wall {trace['extent_ms']} ms")
+    (step,) = [p for p in report["phases"] if p["name"] == "device_step"]
+    ratio = step.get("trace_vs_span_wall_ratio")
+    check(ratio is not None and abs(ratio - 1.0) <= ATTRIBUTION_BAR,
+          f"device_step trace vs span-log wall ratio {ratio}")
+    check(record["census_reconciled"]
+          and report["census_meta"]["platform"] == ("gpu" if device.type == "cuda" else "cpu"),
+          f"census {report.get('census_meta')}")
+
+    clean = {}
+    for label, root in (("run_a", os.path.join(work, "A")), ("run_b", os.path.join(work, "B")),
+                        ("split_work", split_work)):
+        rc, rec = _fsck(root)
+        check(rc == 0 and rec["corrupt"] == 0 and rec["verified"] > 0,
+              f"fsck of {label}: rc {rc}, {rec}")
+        clean[label] = {k: rec[k] for k in ("verified", "unverified", "index_partitions",
+                                            "calibrations", "assembly_bundles",
+                                            "stale_heartbeats", "tmp_files")}
+    faulted = os.path.join(work, "B_faulted")
+    shutil.copytree(os.path.join(work, "B"), faulted)
+    step_dir = os.path.join(faulted, "last", max(
+        (n for n in os.listdir(os.path.join(faulted, "last")) if n.isdigit()), key=int))
+    payload = os.path.join(step_dir, PAYLOAD)
+    os.truncate(payload, os.path.getsize(payload) // 2)
+    cursor = os.path.join(faulted, "trainer_state.json")
+    with open(cursor, "r+b") as f:
+        first = f.read(1)
+        f.seek(0)
+        f.write(bytes([first[0] ^ 0x20]))
+    rc_report, rec = _fsck(faulted)
+    check(rc_report == 1 and rec["corrupt"] == 2
+          and set(rec["corrupt_paths"]) == {step_dir, cursor},
+          f"fsck of the faulted copy: rc {rc_report}, {rec}")
+    rc_quarantine, rec = _fsck(faulted, "--quarantine")
+    check(rc_quarantine == 0 and rec["quarantined"] == 2 and rec["recovered"]
+          and not os.path.exists(step_dir) and not os.path.exists(cursor),
+          f"fsck --quarantine of the faulted copy: rc {rc_quarantine}, {rec}")
+
+    by_key = trace["replays_by_key"]
+    check(by_key and "?" not in by_key,
+          f"replays outside every step#n range of the window: {sorted(by_key)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  profile gauges after run B: per dispatch "
+        f"{gauges['di_train_profile_device_seconds_per_dispatch']:.6f} s, window "
+        f"{gauges['di_train_profile_device_total_seconds']:.6f} s; "
+        f"{dispatch['attribution_log'][0][:200]}")
+    log(f"  cli.attribute ({attribute_s:.1f} s, census of a {CENSUS_PAD}x{CENSUS_PAD} decoder "
+        f"forward): {report['op_launches']} device events, {report['total_device_ms']:.3f} ms "
+        f"in a {trace['extent_ms']:.3f} ms window; by phase "
+        f"{ {p['name']: p['device_ms'] for p in report['phases']} }, unattributed "
+        f"{report['unattributed_ms']:.3f} ms; K1 {counted['k1']} and K2 {counted['k2']} all "
+        f"in device_step; device_step wall trace / span log {ratio} [{smi}]")
+    log(f"  fsck clean: {clean}; faulted copy of run B (truncated state.pt, flipped "
+        f"trainer_state.json): rc {rc_report}, then --quarantine rc {rc_quarantine} with 2 "
+        "quarantined")
+    for key, replay in by_key.items():
+        log(f"  replayed train step, key {key} ({replay['replays']} replay(s) in the window): "
+            f"{replay['kernels']:.0f} kernels, {replay['device_ms']:.3f} ms of device time "
+            f"each; top families: " + "; ".join(
+                f"{r['opcode'][:60]} [{r['op_class']}] "
+                f"{r['total_ms'] / replay['replays']:.3f} ms ({r['share']:.2%})"
+                for r in replay["top_families"]) + f" [{smi}]")
+        log(f"  replayed train step, key {key}, device share by class: " + ", ".join(
+            f"{k} {v:.2%}" for k, v in replay["class_share"].items())
+            + f" (memcpy and memset {replay['memcpy_share']:.2%}) [{smi}]")
+    log(f"  phase 15: {seconds:.1f} s")
+    return {"profile_gauges": gauges, "attribute_s": attribute_s,
+            "total_device_ms": report["total_device_ms"], "window_ms": trace["extent_ms"],
+            "phases": {p["name"]: p["device_ms"] for p in report["phases"]},
+            "unattributed_ms": report["unattributed_ms"], "device_step_wall_ratio": ratio,
+            "k1": counted["k1"], "k2": counted["k2"], "replays": trace["replays"],
+            "replays_by_key": by_key, "census_families": len(report["census_reconciliation"]),
+            "fsck_clean": clean, "fsck_faulted_rc": [rc_report, rc_quarantine],
+            "seconds": seconds, "card": smi}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4122,17 +4378,21 @@ def main(argv=None) -> int:
         serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
                               device, smi)
         serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work:
+    # Phase 15 reads what phases 10-12 leave in these two directories.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as dispatch_work:
         with phase("10"):
             screening = run_screening(cfg, args.seed, device, smi, work)
         with phase("11"):
             fleet = run_fleet_phase(cfg, args.seed, device, smi, work)
-    with phase("12"):
-        dispatch = run_dispatch_loop(args.seed, device, smi)
-    with phase("13"):
-        graphs13 = run_step_graphs(args.seed, device, smi)
-    with phase("14"):
-        frontend = run_frontend(args.seed, device, smi)
+        with phase("12"):
+            dispatch = run_dispatch_loop(args.seed, device, smi, dispatch_work)
+        with phase("13"):
+            graphs13 = run_step_graphs(args.seed, device, smi)
+        with phase("14"):
+            frontend = run_frontend(args.seed, device, smi)
+        with phase("15"):
+            audit = run_fsck_attribution(device, smi, work, dispatch)
     with phase("summary"):
         log("  remat: " + json.dumps({k: v for k, v in remat.items()
                                       if not k.startswith("train_six")}))
@@ -4224,6 +4484,9 @@ def main(argv=None) -> int:
                                  # from its saved npz, at the served PDB key's capture.
                                  **{path: c[0] for path, c in frontend["launches"].items()}},
             "dispatch_profile_window_k1": dispatch["trace"]["k1"],
+            # Phase 15: counted by cli.attribute in that window, each launched
+            # inside a device_step.
+            "dispatch_profile_window_attributed_k1": audit["k1"],
             "screen_profiled_encode_replay_k1": screening["profiled_encode_replay"]["k1"],
             "serve_profiled_replay_k1": serving["profiled_replay"]["k1"],
             "max_abs_err": max(fwd_errs.values()), "max_abs_err_n768": n768_errs[0],
@@ -4261,6 +4524,7 @@ def main(argv=None) -> int:
                                  "eval_replay_profiled": graphs13["profiled_eval_replay"]["k2"],
                                  **{path: c[1] for path, c in frontend["launches"].items()}},
             "dispatch_profile_window_k2": dispatch["trace"]["k2"],
+            "dispatch_profile_window_attributed_k2": audit["k2"],
             "max_abs_err": bwd_err, "max_abs_err_n768": n768_errs[1],
             "ms_by_head_dim": {k: t["k2_ms"] for k, t in ktimes["by_head_dim"].items()},
             "bound_ms_by_head_dim": {k: t["k2_bound_ms"] for k, t in ktimes["by_head_dim"].items()},
@@ -4282,6 +4546,7 @@ def main(argv=None) -> int:
         print(json.dumps({"step_graphs": graphs13}), flush=True)
         print(json.dumps({"dispatch": dispatch}), flush=True)
         print(json.dumps({"frontend": frontend}), flush=True)
+        print(json.dumps({"fsck_attribution": audit}), flush=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         print(nvidia_smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -59,8 +59,9 @@ epoch scalars go through the metric writer and the registry
 (``training/wandb_logger.py``), with contact-map images every
 ``viz_every_n_epochs``; ``profile_dir`` captures train dispatches
 ``[1, 1 + profile_steps)`` with ``torch.profiler`` as a phase-labeled
-Chrome trace. An abort on ``max_bad_steps`` writes a diagnostics JSON
-first. Multi-device dispatch is not ported.
+Chrome trace, attributed on the spot into the ``di_train_profile_*``
+gauges (``obs/attribution.py``). An abort on ``max_bad_steps`` writes a
+diagnostics JSON first. Multi-device dispatch is not ported.
 
 Data sources are callables ``epoch -> iterable of PairedComplex`` (the
 loader re-shuffles per epoch) or plain sequences of padded batches.
@@ -554,7 +555,8 @@ class Trainer:
 
     def _stop_profile(self) -> None:
         """Close the window (idempotent; fit's finally calls it on every
-        exit path) and export its Chrome trace into ``profile_dir``."""
+        exit path), export its Chrome trace into ``profile_dir`` and
+        attribute it."""
         if self._profiler is not None:
             profiler, self._profiler = self._profiler, None
             obs_spans.set_profiler_annotations(False)
@@ -566,10 +568,46 @@ class Trainer:
             t0 = time.perf_counter()
             profiler.export_chrome_trace(path)
             self.log(f"profile trace written to {path} ({time.perf_counter() - t0:.1f} s)")
+            self._attribute_profile()
         if self.cfg.profile_dir and not self._profile_started and not self._profile_done:
             self.log(f"profile_dir={self.cfg.profile_dir}: the run ended before its second "
                      "train dispatch - nothing was captured")
         self._profile_done = True
+
+    def _attribute_profile(self) -> None:
+        """Parse the window's trace into the device-time gauges: device
+        time per train dispatch (``device_step``'s attributed time over
+        its windows) and in the whole window, in unrounded seconds. As in
+        the JAX trainer, a trace that cannot be parsed is logged and
+        never ends the run that just profiled."""
+        try:
+            from deepinteract_tpu_torch.obs import attribution as obs_attr
+            from deepinteract_tpu_torch.obs import device as obs_device
+
+            trace = obs_device.load_profile(self.cfg.profile_dir)
+            agg = obs_attr.aggregate_ops(trace, top_n=3)
+            step = obs_attr.phase_totals(trace)[0].get("device_step")
+            dispatches = step.instances if step else max(1, self.cfg.profile_steps)
+            per_dispatch_s = (step.device_us if step else trace.total_device_us) / dispatches / 1e6
+            total_s = trace.total_device_us / 1e6
+            obs_metrics.gauge(
+                "di_train_profile_device_seconds_per_dispatch",
+                "Measured device time per train dispatch over the last "
+                "--profile_dir window").set(per_dispatch_s)
+            obs_metrics.gauge(
+                "di_train_profile_device_total_seconds",
+                "Total device time inside the last --profile_dir "
+                "window").set(total_s)
+            top = ", ".join(
+                f"{op['opcode']} {op['total_ms']:.2f}ms ({op['share']:.0%})"
+                for op in agg["top_ops"][:3])
+            self.log(
+                f"profile attribution: {total_s * 1e3:.2f} ms device time over "
+                f"{dispatches} dispatch(es) ({per_dispatch_s * 1e3:.2f} ms/dispatch); "
+                f"top ops: {top}; full report: python -m "
+                f"deepinteract_tpu_torch.cli.attribute --profile_dir {self.cfg.profile_dir}")
+        except Exception as exc:  # noqa: BLE001 - advisory, as in the JAX trainer
+            self.log(f"profile attribution skipped: {exc}")
 
     def _train_epoch(self, state: TrainState, data: DataSource, epoch: int,
                      losses: List[float], stats: Dict[str, float], start_batch: int = 0,
