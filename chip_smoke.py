@@ -168,7 +168,11 @@ Phases, in order; any failure exits non-zero:
      per-step losses and grad norms, histories, last/ states (weights,
      AdamW moments and count, batch-norm statistics) and test metrics
      bitwise equal, one skipped step each, exact launch counts (graphed:
-     at the captures only); on a state of its own each capture's (K1, K2,
+     at the captures only); the poisoned graphed run again with
+     ``--num_devices 1`` (rank 0 of a one-process NCCL group: the loss,
+     batch-norm and gradient all-reduces captured in every train graph),
+     bitwise equal to both poisoned runs, with the backend, the
+     all-reduces per train capture and the group's end checked; on a state of its own each capture's (K1, K2,
      CSR builds) and seconds, one profiled train replay (4, 4, 2) and
      eval replay (4, 0, 2) beside an eager step's kernel count, no
      synchronization while a full run of 8 is dispatched (one read of its
@@ -3534,6 +3538,73 @@ def _cli_train_run(argv, graphs: bool, nan_at=None):
     return history, test, counts, _read_visited(visited), wall
 
 
+def _data_parallel_run(argv, nan_at):
+    """``_cli_train_run`` graphed with ``--num_devices 1``: rank 0 of a
+    one-process NCCL group, in process. Also returns the step graphs the
+    trainer built, the all-reduces issued by site and the train-mode
+    batch-norm calls (Python counts: the warm-up and capture of each train
+    key; a replay runs no Python)."""
+    from deepinteract_tpu_torch.models.layers import MaskedBatchNorm
+    from deepinteract_tpu_torch.parallel import mesh as mesh_lib
+
+    seen, bn_calls = [], []
+    real = Trainer.step_graphs
+
+    def recorded(self, state):
+        graphs = real(self, state)
+        if graphs is not None and all(g is not graphs for g in seen):
+            seen.append(graphs)
+        return graphs
+
+    def count_bn(module, inputs, output):
+        if isinstance(module, MaskedBatchNorm) and module.training:
+            bn_calls.append(1)
+
+    before = dict(mesh_lib.ALL_REDUCES)
+    Trainer.step_graphs = recorded
+    hook = torch.nn.modules.module.register_module_forward_hook(count_bn)
+    try:
+        run = _cli_train_run([*argv, "--num_devices", "1"], True, nan_at)
+    finally:
+        Trainer.step_graphs = real
+        hook.remove()
+    reduces = {k: v - before.get(k, 0) for k, v in mesh_lib.ALL_REDUCES.items()
+               if v != before.get(k, 0)}
+    return run, seen, reduces, len(bn_calls)
+
+
+def _check_data_parallel(seen, reduces, bn_calls, train_keys) -> dict:
+    """The one-process NCCL run's collectives: the backend, one inventory
+    whose train captures each hold the gradient's all-reduce, the loss's
+    two, two for each train-mode batch-norm call and two for its backward;
+    its eval captures none; the group destroyed after the run."""
+    import torch.distributed as dist
+
+    check(len(seen) == 1 and seen[0].mesh is not None,
+          f"data-parallel run: {len(seen)} step-graph inventories, mesh "
+          f"{seen[0].mesh if seen else None}")
+    graphs = seen[0]
+    check(graphs.mesh.backend == "nccl" and graphs.mesh.world == 1,
+          f"data-parallel run: backend {graphs.mesh.backend}, world {graphs.mesh.world}")
+    check(not dist.is_initialized(), "data-parallel run: the process group outlived the run")
+    trains = list(graphs.train_entries.values())
+    per_step_bn = bn_calls // (GRAPH_COUNTED_RUNS * max(train_keys, 1))
+    want = {"grads": 1, "loss": 2, "batch_norm": 2 * per_step_bn,
+            "batch_norm_grad": 2 * per_step_bn}
+    check(per_step_bn > 0 and bn_calls == GRAPH_COUNTED_RUNS * train_keys * per_step_bn,
+          f"data-parallel run: {bn_calls} train-mode batch-norm calls over {train_keys} keys")
+    check(len(trains) == train_keys and all(e.all_reduces == want for e in trains),
+          f"data-parallel run: all-reduces per train capture "
+          f"{[e.all_reduces for e in trains]}, expected {want}")
+    check(all(not e.all_reduces for e in graphs.eval_entries.values()),
+          "data-parallel run: an eval capture holds an all-reduce")
+    total = {k: GRAPH_COUNTED_RUNS * train_keys * v for k, v in want.items()}
+    check(reduces == total, f"data-parallel run: all-reduces {reduces}, expected {total}")
+    return {"backend": graphs.mesh.backend, "world": graphs.mesh.world,
+            "all_reduces_per_train_capture": want, "all_reduces_issued": reduces,
+            "train_captures": len(trains), "bn_calls_per_step": per_step_bn}
+
+
 def _same_floats(a, b) -> bool:
     """Bitwise equal sequences of floats (NaN equals NaN)."""
     return len(a) == len(b) and all(x == y or (x != x and y != y) for x, y in zip(a, b))
@@ -3634,10 +3705,12 @@ def run_step_graph_configs(cfg, seed, device, work) -> dict:
 def run_step_graphs(seed, device, smi, flags=()) -> dict:
     """Phase 13: ``cli.train`` on phase 12's dataset under
     ``--deterministic`` at dropout 0.1, eager (``step_graphs=False``) and
-    graphed, clean and with one batch of a run of 8 poisoned: per-step
-    losses and grad norms, histories, last/ states (weights, AdamW
-    moments and count, batch-norm statistics) and test metrics bitwise
-    equal, exact launch counts; then on a state of its own: the captures'
+    graphed, clean and with one batch of a run of 8 poisoned, and the
+    poisoned run again data-parallel (``--num_devices 1``: NCCL at world
+    size 1, the all-reduces captured in the train graphs): per-step losses
+    and grad norms, histories, last/ states (weights, AdamW moments and
+    count, batch-norm statistics) and test metrics bitwise equal, exact
+    launch and all-reduce counts; then on a state of its own: the captures'
     counts and seconds, one profiled replay of each kind against an eager
     step, a full run's per-step wall graphed and eager, the host's
     blocking reads per run, peak memory; then the other configurations."""
@@ -3672,10 +3745,16 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
                                      ("eager_nan", False, nan_at),
                                      ("graphed_nan", True, nan_at)):
             runs[name] = _cli_train_run(argv(name), graphs, poison)
+        train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
+        runs["graphed_nan_dp"], seen, reduces, bn_calls = _data_parallel_run(
+            argv("graphed_nan_dp"), nan_at)
+        data_parallel = _check_data_parallel(seen, reduces, bn_calls, _keys(train_b))
+        data_parallel["seconds"] = runs["graphed_nan_dp"][4]
+        del seen
         finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
             None, which="last") for n in runs}
-        train_b, eval_b = _split(root, "train"), _split(root, "val") + _split(root, "test")
-        for a, b in (("eager", "graphed"), ("eager_nan", "graphed_nan")):
+        for a, b in (("eager", "graphed"), ("eager_nan", "graphed_nan"),
+                     ("eager_nan", "graphed_nan_dp"), ("graphed_nan", "graphed_nan_dp")):
             (hist_a, test_a, _, steps_a, _), (hist_b, test_b, _, steps_b, _) = runs[a], runs[b]
             diff = _tree_diff(finals[a], finals[b])
             check(diff == 0.0, f"{b}: last/ state differs from {a}'s by {diff:.3g}")
@@ -3690,13 +3769,16 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
                       f"{b}: history {key} {hist_b[0][key]} vs {a}'s {hist_a[0][key]}")
             check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
                   f"{b}: test metrics differ from {a}'s")
-        for name in ("eager_nan", "graphed_nan"):
+        for name in ("eager_nan", "graphed_nan", "graphed_nan_dp"):
             skipped = runs[name][0][0]["train_skipped_steps"]
             check(skipped == 1, f"{name}: {skipped} skipped steps, expected 1")
             check(not math.isfinite(runs[name][3][nan_at - 1][2]),
                   f"{name}: step {nan_at} was not the poisoned one")
-        for name in ("graphed", "graphed_nan"):
+        for name in ("graphed", "graphed_nan", "graphed_nan_dp"):
             _expect_graphed(name, runs[name][2], train_b, eval_b)
+        check(runs["graphed_nan_dp"][2] == runs["graphed_nan"][2],
+              f"graphed_nan_dp: launches {runs['graphed_nan_dp'][2]} vs graphed_nan's "
+              f"{runs['graphed_nan'][2]}")
         for name in ("eager", "eager_nan"):
             _expect_launches(name, runs[name][2], len(train_b) + len(eval_b), len(train_b))
 
@@ -3771,6 +3853,11 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
             f"{t['tele_device_frac']:.2%} ({t['tele_device_s']:.3f} s), launches {runs[n][2]}")
     log(f"  eager vs graphed bitwise equal (per-step losses and grad norms, history, last/ "
         f"state, test metrics), clean and with batch {nan_at} poisoned (1 skipped step each)")
+    log(f"  data parallel (--num_devices 1, backend {data_parallel['backend']}, world "
+        f"{data_parallel['world']}): {data_parallel['seconds']:.3f} s, bitwise equal to "
+        f"eager_nan and graphed_nan; all-reduces per train capture "
+        f"{data_parallel['all_reduces_per_train_capture']} ({data_parallel['train_captures']} "
+        f"captures), issued {data_parallel['all_reduces_issued']}; group destroyed")
     for e in inventory:
         log(f"  capture {e['kind']} {e['key'][-1]}: {e['capture_s']:.2f} s (warm-up "
             f"{e['warm_up_s']:.2f}, set-up {e['enter_s']:.2f}, body {e['body_s']:.2f}, "
@@ -3786,6 +3873,7 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
     log(f"  phase 13: {seconds:.1f} s")
     return {"launches": {n: runs[n][2] for n in runs}, "telemetry": tele,
             "walls_s": {n: runs[n][4] for n in runs}, "poisoned_batch": nan_at,
+            "data_parallel": data_parallel,
             "captures": inventory, "profiled_train_replay": train_prof,
             "profiled_eval_replay": eval_prof, "profiled_eager_step": eager_prof,
             "full_run_step_ms": step_ms, "full_run_bucket": bucket,

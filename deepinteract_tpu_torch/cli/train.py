@@ -1,9 +1,9 @@
 """Train CLI: data module -> model -> trainer with early stopping and
 checkpoints -> fit -> test metrics.
 
-Port of ``deepinteract_tpu/cli/train.py`` on one device. Runs on the GPU
-unless ``--device cpu`` is given; without a GPU and without ``--device
-cpu`` it refuses.
+Port of ``deepinteract_tpu/cli/train.py``. Runs on the GPU unless
+``--device cpu`` is given; without a GPU and without ``--device cpu`` it
+refuses.
 
     python -m deepinteract_tpu_torch.cli.train --dips_root D [--num_epochs N] \\
         [--batch_size B] [--lr --weight_decay --grad_clip_norm --dropout_rate] \\
@@ -15,7 +15,21 @@ cpu`` it refuses.
         [--steps_per_dispatch K] [--eval_batches_per_dispatch K] [--device_prefetch] \\
         [--packed_cache_dir DIR] [--profile_dir DIR [--profile_steps N]] [--no_span_log] \\
         [--viz_every_n_epochs N] [--tb_log_dir DIR] [--use_wandb [--offline] ...] \\
-        [--supervise [--hang_timeout_s T] ...] [--device cpu]
+        [--supervise [--hang_timeout_s T] ...] [--device cpu] \\
+        [--num_devices N | --coordinator_address A --num_processes W --process_id R]
+
+Data parallel, one process per device (``parallel/``): ``--num_devices
+N`` runs rank 0 in this process and starts ranks 1..N-1 as copies of this
+command line, one per device, meeting at a FileStore in ``--ckpt_dir``;
+``--coordinator_address host:port`` (or ``file://PATH``) with
+``--num_processes`` and ``--process_id`` joins one rank of a group started
+elsewhere. NCCL on the GPU, gloo with ``--device cpu``. Each step is the
+single-process step on the global batch of ``batch_size * W`` complexes;
+rank 0 alone writes checkpoints, logs, the test CSV and the final
+metrics line, and every rank prints ``host r/W: n coordinated global
+steps/epoch``. ``--num_devices`` above the devices there are, a topology
+that does not come up and ``--num_pair_shards`` above 1 (pair-map
+sharding, not ported yet) raise.
 
 The train loader shuffles runs of ``--steps_per_dispatch`` same-bucket
 batches (the JAX CLI's epoch order), and each full run is one dispatch of
@@ -45,10 +59,13 @@ key replays that key's CUDA graph (``training/step_graphs.py``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import subprocess
 import sys
+import time
 from itertools import islice
 
 import torch
@@ -63,6 +80,8 @@ from deepinteract_tpu_torch.data.packed import PackedDataset, pack_dataset
 from deepinteract_tpu_torch.device import resolve_device
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.models.policy import set_backend_precision
+from deepinteract_tpu_torch.parallel import multihost
+from deepinteract_tpu_torch.parallel.mesh import available_devices, make_mesh
 from deepinteract_tpu_torch.robustness.preemption import TrainingPreempted
 from deepinteract_tpu_torch.training.loop import Trainer
 from deepinteract_tpu_torch.training.lr_finder import lr_find
@@ -78,9 +97,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="the test split's per-target top-k metrics (default: "
                              "test_top_metrics.csv in the working directory, as the "
                              "JAX CLI writes it)")
+    g = parser.add_argument_group("distributed")
+    g.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices, one process each (0 = one process, no "
+                        "group); ranks 1..N-1 are started by this process")
+    g.add_argument("--num_pair_shards", type=int, default=1,
+                   help="context-parallel shards of the pair map (only 1: pair-map "
+                        "sharding is not ported yet)")
+    g.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0's store (or file://PATH) of a multi-process "
+                        "run (the reference's --num_compute_nodes)")
+    g.add_argument("--num_processes", type=int, default=None)
+    g.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
     if args.fine_tune and not args.ckpt_name:
         parser.error("--fine_tune needs --ckpt_name (the checkpoint to warm-start from)")
+    # The command line, for the ranks --num_devices starts.
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args
 
 
@@ -88,7 +121,9 @@ def run(args: argparse.Namespace):
     """Train as ``args`` say and evaluate the test split. Returns (history,
     test metrics); a preemption raises ``TrainingPreempted`` once the
     newest checkpoint is flushed. ``--deterministic`` holds for this call
-    only."""
+    only. A data-parallel run's group lives for this call: it is
+    destroyed (after a barrier, or at once on an error) before it
+    returns."""
     if not args.deterministic:
         return _run(args)
     # cuBLAS reads the workspace setting when its first handle is made.
@@ -101,8 +136,95 @@ def run(args: argparse.Namespace):
         torch.use_deterministic_algorithms(previous)
 
 
-def _run(args: argparse.Namespace):
+def is_primary(args: argparse.Namespace) -> bool:
+    """Rank 0 of ``args``' run (or its only process)."""
+    return not args.process_id
+
+
+@contextlib.contextmanager
+def data_parallel_run(args: argparse.Namespace):
+    """The run's data axis (a ``parallel.mesh.DataMesh``, or None for one
+    process): joined from the coordinator flags, or, with ``--num_devices
+    N``, rank 0 here and ranks 1..N-1 started as copies of the command
+    line, meeting at a FileStore in ``--ckpt_dir``. On the way out every
+    rank meets at the exit barrier and the group is destroyed; the started
+    ranks are waited for, and one that failed raises. On an error other
+    than a preemption the group is destroyed without the barrier and the
+    started ranks are killed."""
+    if args.num_pair_shards > 1:
+        raise NotImplementedError(
+            f"--num_pair_shards {args.num_pair_shards}: pair-map sharding is not ported yet "
+            "(ROADMAP queue 1, item 10b)")
     device = resolve_device(args.device)
+    coordinated = any(v is not None for v in (args.coordinator_address, args.num_processes,
+                                               args.process_id))
+    if args.num_devices and coordinated and args.num_devices != args.num_processes:
+        raise ValueError(f"--num_devices {args.num_devices} and --num_processes "
+                         f"{args.num_processes} disagree")
+    if not coordinated and args.num_devices <= 0:
+        yield None
+        return
+    children, store_path = [], None
+    if coordinated:
+        multihost.initialize_distributed(args.coordinator_address, args.num_processes,
+                                         args.process_id, device)
+    else:
+        n = args.num_devices
+        have = available_devices(device)
+        if n > have:
+            raise ValueError(f"--num_devices {n}: this host has {have} {device.type} "
+                             "device(s)")
+        run_dir = args.ckpt_dir or "."
+        os.makedirs(run_dir, exist_ok=True)
+        store_path = os.path.abspath(os.path.join(
+            run_dir, f".rendezvous-{os.getpid()}-{time.time_ns()}"))
+        flags = ["--coordinator_address", f"file://{store_path}", "--num_processes", str(n)]
+        children = [subprocess.Popen([sys.executable, "-m", "deepinteract_tpu_torch.cli.train",
+                                      *args.argv, *flags, "--process_id", str(rank)])
+                    for rank in range(1, n)]
+        try:
+            multihost.initialize_distributed(f"file://{store_path}", n, 0, device)
+        except BaseException:
+            _stop(children)
+            raise
+    try:
+        yield make_mesh(num_data=multihost.process_count())
+    except TrainingPreempted:
+        _leave(children, store_path, "preempted-exit")
+        raise
+    except BaseException:
+        _stop(children)
+        multihost.abort_group()
+        raise
+    _leave(children, store_path, "train-exit")
+
+
+def _stop(children) -> None:
+    for child in children:
+        child.kill()
+        child.wait()
+
+
+def _leave(children, store_path, tag: str) -> None:
+    """The exit barrier, then the started ranks' exit codes."""
+    multihost.exit_barrier(tag)
+    failed = [(rank, child.wait()) for rank, child in enumerate(children, start=1)]
+    failed = [(rank, rc) for rank, rc in failed if rc != 0]
+    if store_path and os.path.exists(store_path):
+        os.remove(store_path)
+    if failed:
+        raise RuntimeError(f"data-parallel ranks exited with codes {failed}")
+
+
+def _run(args: argparse.Namespace):
+    with data_parallel_run(args) as mesh:
+        return _train(args, mesh)
+
+
+def _train(args: argparse.Namespace, mesh):
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.rank == 0
+    shard = (mesh.rank, mesh.world) if mesh is not None and mesh.world > 1 else None
 
     model_cfg = model_config_from_args(args)
     dm = PICPDataModule(dips_root=args.dips_root, db5_root=args.db5_root,
@@ -113,13 +235,19 @@ def _run(args: argparse.Namespace):
                         split_ver=args.split_ver, seed=args.seed)
     train_ds, val_ds, test_ds = dm.train, dm.val, dm.test
     if args.packed_cache_dir:
-        train_ds, val_ds, test_ds = packed_splits(args, train_ds, val_ds, test_ds)
+        train_ds, val_ds, test_ds = packed_splits(args, train_ds, val_ds, test_ds,
+                                                  write=primary)
+    # Every rank plans the same global batches and loads its own slice;
+    # val and test stay whole on every rank (replicated evaluation).
     train_loader = BucketedLoader(train_ds, batch_size=args.batch_size, shuffle=True,
                                   drop_remainder=True, seed=args.seed,
                                   pad_to_max_bucket=args.pad_to_max_bucket,
                                   diagonal_buckets=args.diagonal_buckets,
                                   skip_budget=args.data_skip_budget,
-                                  dispatch_run=max(1, args.steps_per_dispatch))
+                                  dispatch_run=max(1, args.steps_per_dispatch), shard=shard)
+    if shard:
+        print(f"host {shard[0]}/{shard[1]}: {train_loader.num_batches()} coordinated global "
+              f"steps/epoch, {args.batch_size} local x {shard[1]} hosts per step", flush=True)
     val_loader = BucketedLoader(val_ds, batch_size=args.eval_batch_size)
     test_loader = BucketedLoader(test_ds, batch_size=args.eval_batch_size)
     # The cosine-restart schedule counts steps of this loader's epochs.
@@ -132,11 +260,11 @@ def _run(args: argparse.Namespace):
     model.to(device)
     if args.find_lr:
         suggested, _ = lr_find(model, islice(train_loader.iter_epoch(0), 8), optim_cfg,
-                               seed=args.seed, weight_classes=args.weight_classes)
+                               seed=args.seed, weight_classes=args.weight_classes, mesh=mesh)
         print(f"lr_find suggestion: {suggested:.2e} (was {optim_cfg.lr:.2e})")
         optim_cfg = dataclasses.replace(optim_cfg, lr=suggested)
     trainer = Trainer(model, loop_config_from_args(args), optim_cfg,
-                      metric_writer=make_metric_writer(args))
+                      metric_writer=make_metric_writer(args) if primary else None, mesh=mesh)
     state = trainer.init_state(fine_tune_from=args.ckpt_name if args.fine_tune else None)
     state, history = trainer.fit(state, train_loader, val_data=val_loader, resume=args.resume)
     writer = trainer.metric_writer
@@ -146,16 +274,18 @@ def _run(args: argparse.Namespace):
         except Exception as exc:  # an artifact upload must not fail the run
             print(f"checkpoint artifact upload failed: {exc}")
     test_metrics = trainer.evaluate(state, test_loader, stage="test",
-                                    targets=test_loader.targets(), csv_path=args.test_csv)
+                                    targets=test_loader.targets(),
+                                    csv_path=args.test_csv if primary else None)
     return history, test_metrics
 
 
-def packed_splits(args: argparse.Namespace, train_ds, val_ds, test_ds):
+def packed_splits(args: argparse.Namespace, train_ds, val_ds, test_ds, write: bool = True):
     """The three splits as pre-padded packs under ``--packed_cache_dir``
     (``train/``, ``val/``, ``test/``), each written on the first run and
     reused while its signature, item count and lengths match. The
     signatures are the JAX CLI's, so a pack that either package wrote is
-    the other's too."""
+    the other's too. Under a group only rank 0 writes (``write``), and every
+    rank waits at a barrier before reading."""
     train_sig = (f"pad_max={args.pad_to_max_bucket},diag={args.diagonal_buckets},"
                  f"indep={args.input_indep}")
     eval_sig = f"eval,indep={args.input_indep}"
@@ -164,10 +294,13 @@ def packed_splits(args: argparse.Namespace, train_ds, val_ds, test_ds):
              ("val", val_ds, make_bucket_fn(), eval_sig),
              ("test", test_ds, make_bucket_fn(), eval_sig))
     packs = []
-    for split, ds, bucket_fn, sig in specs:
-        pack_dir = os.path.join(args.packed_cache_dir, split)
-        pack_dataset(ds, pack_dir, bucket_fn, signature=sig)
-        packs.append(PackedDataset(pack_dir))
+    if write:
+        for split, ds, bucket_fn, sig in specs:
+            pack_dataset(ds, os.path.join(args.packed_cache_dir, split), bucket_fn,
+                         signature=sig)
+    multihost.barrier()
+    for split, *_ in specs:
+        packs.append(PackedDataset(os.path.join(args.packed_cache_dir, split)))
     return packs
 
 
@@ -183,7 +316,8 @@ def _supervise_main(args: argparse.Namespace, argv) -> int:
     heartbeat_seconds = args.heartbeat_seconds if args.heartbeat_seconds > 0 else 5.0
     supervisor = TrainingSupervisor(
         train_child_cmd_fn(strip_supervisor_flags(list(argv)), heartbeat_seconds),
-        SuperviseConfig(heartbeat_path=os.path.join(args.ckpt_dir, "obs", "heartbeat_p0.json"),
+        SuperviseConfig(heartbeat_path=os.path.join(args.ckpt_dir, "obs",
+                                                    f"heartbeat_p{args.process_id or 0}.json"),
                         state_dir=args.ckpt_dir, heartbeat_seconds=heartbeat_seconds,
                         poll_interval_s=args.watch_interval_s,
                         hang_timeout_s=args.hang_timeout_s, start_grace_s=args.start_grace_s,
@@ -199,8 +333,9 @@ def _supervise_main(args: argparse.Namespace, argv) -> int:
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.supervise:
-        # The parent stays a plain control plane: the child owns the device.
-        return _supervise_main(args, sys.argv[1:] if argv is None else argv)
+        # The parent stays a plain control plane, in front of the group: the
+        # child owns the device and the rank.
+        return _supervise_main(args, args.argv)
     try:
         resolve_device(args.device)
     except RuntimeError as err:
@@ -212,7 +347,8 @@ def main(argv=None) -> int:
         print(f"training preempted ({exc}); checkpoint state is flushed — rerun with "
               f"--resume to continue", flush=True)
         return 0
-    print({k: round(v, 4) for k, v in test_metrics.items()})
+    if is_primary(args):
+        print({k: round(v, 4) for k, v in test_metrics.items()})
     return 0
 
 

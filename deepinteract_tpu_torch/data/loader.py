@@ -19,7 +19,17 @@ Resume cursor: ``iter_epoch(epoch, start_batch, skips_used)`` starts an
 epoch at a consumed-batch position without loading the batches before it,
 and ``skip_budget`` lets up to that many batches per epoch fail to load
 (logged, dropped) before a load error is raised; ``skips_before`` is the
-trainer's ledger of those drops. Single process only.
+trainer's ledger of those drops.
+
+Data parallel (``shard=(rank, world)``, the JAX loader's): every rank
+plans the same global batches of ``batch_size * world`` over the whole
+dataset from the same seed and loads only its own ``batch_size`` slice of
+each, so ranks agree on steps and batch shapes by construction (a split
+file list would not); a short global batch wraps within its bucket, and
+``num_batches`` counts global steps. Under a multi-process group a skip
+drop is decided by host 0 through ``parallel.multihost.agree_any_flag``
+(the store, safe on the read-ahead thread), so every rank drops the same
+batches.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import queue
 import random
 import threading
 from collections import defaultdict
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from deepinteract_tpu_torch import constants
 from deepinteract_tpu_torch.data.graph import PairedComplex, pick_bucket, stack_complexes
@@ -62,8 +72,16 @@ class BucketedLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_remainder: bool = False, seed: int = 42,
                  pad_to_max_bucket: bool = False, diagonal_buckets: bool = False,
-                 skip_budget: int = 0, prefetch: int = 2, dispatch_run: int = 1):
+                 skip_budget: int = 0, prefetch: int = 2, dispatch_run: int = 1,
+                 shard: Optional[Tuple[int, int]] = None):
+        if shard is not None and not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard {shard}: expected (rank, world) with 0 <= rank < world")
         self.dataset = dataset
+        # (rank, world): this rank's slice of each global batch.
+        self.shard = shard
+        # Per-produce serial of the skip agreement's keys (write-once per
+        # key; ranks produce epochs in the same order).
+        self._agree_serial = 0
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
@@ -91,8 +109,12 @@ class BucketedLoader:
             buckets[key].append(idx)
         self._buckets = dict(buckets)
 
+    def _global_batch_size(self) -> int:
+        return self.batch_size * (self.shard[1] if self.shard else 1)
+
     def num_batches(self) -> int:
-        gb, total = self.batch_size, 0
+        """Batches an epoch plans: global steps under a shard."""
+        gb, total = self._global_batch_size(), 0
         for indices in self._buckets.values():
             total += len(indices) // gb if self.drop_remainder else -(-len(indices) // gb)
         return total
@@ -101,17 +123,24 @@ class BucketedLoader:
         """[(bucket, item indices)] in this epoch's batch order: buckets in
         sorted order, items shuffled within each bucket, then the batches
         (or, with ``dispatch_run`` > 1, runs of up to that many same-bucket
-        batches) shuffled, all from ``random.Random(seed + epoch)``."""
+        batches) shuffled, all from ``random.Random(seed + epoch)``. Under
+        a shard the entries are global batches, the same on every rank."""
         plan = []
+        gb = self._global_batch_size()
         rng = random.Random(self.seed + epoch) if self.shuffle else None
         for bucket, indices in sorted(self._buckets.items()):
             idxs = list(indices)
             if rng:
                 rng.shuffle(idxs)
-            for i in range(0, len(idxs), self.batch_size):
-                chunk = idxs[i:i + self.batch_size]
-                if len(chunk) < self.batch_size and self.drop_remainder:
-                    continue
+            for i in range(0, len(idxs), gb):
+                chunk = idxs[i:i + gb]
+                if len(chunk) < gb:
+                    if self.drop_remainder:
+                        continue
+                    if self.shard:
+                        # Wrap within the bucket (DistributedSampler padding):
+                        # every rank's slice stays full.
+                        chunk += [idxs[k % len(idxs)] for k in range(gb - len(chunk))]
                 plan.append((bucket, chunk))
         if rng and self.dispatch_run > 1:
             runs, i = [], 0
@@ -133,6 +162,35 @@ class BucketedLoader:
         if batches_consumed <= 0:
             return 0
         return int(self._skips_at.get(int(batches_consumed), 0))
+
+    def _host_slice(self, chunk: List[int]) -> List[int]:
+        if self.shard is None:
+            return chunk
+        start = self.shard[0] * self.batch_size
+        return chunk[start:start + self.batch_size]
+
+    def _skip_agreement(self):
+        """None for one process or no skip budget (local decisions), else
+        ``(epoch, plan_pos, local_fail) -> drop``: host 0's verdict "some
+        rank failed to load this plan entry". A multi-process group
+        without the store raises rather than risk ranks dropping
+        different batches."""
+        from deepinteract_tpu_torch.parallel import multihost
+
+        if self.shard is None or self.skip_budget <= 0 or multihost.process_count() <= 1:
+            return None
+        if not multihost.can_agree():
+            raise RuntimeError("a multi-process skip_budget needs initialize_distributed's "
+                               "store: set skip_budget=0 rather than risk ranks skipping "
+                               "different batches")
+        self._agree_serial += 1
+        serial = self._agree_serial
+
+        def agree(epoch: int, plan_pos: int, local_fail: bool) -> bool:
+            return multihost.agree_any_flag(
+                f"di_loader_skip/{self.seed}/{serial}/{epoch}/{plan_pos}", local_fail)
+
+        return agree
 
     def _load(self, bucket: Tuple[int, int], chunk: List[int]) -> PairedComplex:
         faults.maybe_raise("loader.batch", lambda: ValueError("injected corrupt complex"))
@@ -164,26 +222,46 @@ class BucketedLoader:
         paid = max(0, start_batch) + max(0, skips_used)
         produced, cum_skips = max(0, start_batch), max(0, skips_used)
         self._skips_at = {}
+        agree = self._skip_agreement()
         for pos, (bucket, chunk) in enumerate(self.epoch_plan(epoch)):
             if pos < paid:
                 continue
+            chunk = self._host_slice(chunk)
+            local_exc: Optional[Exception] = None
             try:
                 batch = self._load(bucket, chunk)
             except Exception as exc:
-                if skips_left <= 0:
+                if skips_left <= 0 and agree is None:
                     raise
+                local_exc = exc
+            drop = (agree(epoch, pos, local_exc is not None) if agree is not None
+                    else local_exc is not None)
+            if drop:
+                if skips_left <= 0:
+                    if local_exc is not None:
+                        raise local_exc
+                    raise RuntimeError(f"a peer rank failed to load batch (bucket "
+                                       f"{bucket[0]}x{bucket[1]}, plan entry {pos}) with the "
+                                       "skip budget exhausted")
                 skips_left -= 1
                 cum_skips += 1
                 logger.warning("skipping corrupt batch (bucket %sx%s, items %s): %s - %d "
-                               "skip(s) left this epoch", *bucket, chunk, exc, skips_left)
+                               "skip(s) left this epoch", *bucket, chunk,
+                               local_exc if local_exc is not None
+                               else "a peer rank's load failure (coordinated drop)",
+                               skips_left)
                 continue
+            if local_exc is not None:
+                raise local_exc  # unreachable under the OR verdict: never yield None
             produced += 1
             self._skips_at[produced] = cum_skips
             yield batch
 
     def targets(self) -> List[str]:
-        """Target names in epoch-0 order (for the test CSV)."""
-        return [self.dataset.target_of(i) for _, chunk in self.epoch_plan(0) for i in chunk]
+        """Target names in epoch-0 order (for the test CSV): this rank's
+        slices under a shard."""
+        return [self.dataset.target_of(i) for _, chunk in self.epoch_plan(0)
+                for i in self._host_slice(chunk)]
 
     def __call__(self, epoch: int) -> Iterator[PairedComplex]:
         return self.iter_epoch(epoch)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepinteract_tpu_torch.models.policy import STATS_DTYPE
+from deepinteract_tpu_torch.parallel.mesh import active_mesh
 
 
 def _cast(p, dtype):
@@ -60,7 +61,14 @@ class MaskedBatchNorm(nn.Module):
     summed, so ``count = n_valid * C`` divides the per-channel sums.
     Gradients flow through the batch statistics. The running statistics
     move with momentum 0.1, the variance unbiased by count / (count - 1),
-    outside the autograd graph."""
+    outside the autograd graph.
+
+    Inside ``parallel.mesh.data_parallel(mesh)`` the train-mode
+    statistics are those of the global batch: the per-channel sums and the
+    count, then the centred squares (the same two passes), are summed over
+    the ranks by differentiable all-reduces, whose backward sums the
+    gradients too; the running statistics then move identically on every
+    rank. Outside it nothing changes, bit for bit."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -76,9 +84,18 @@ class MaskedBatchNorm(nn.Module):
         m = mask[..., None].to(STATS_DTYPE)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            count = torch.clamp(m.sum() * x.shape[-1], min=1.0)  # n_valid * C
-            mean = (xf * m).sum(axes) / count
-            var = (m * (xf - mean) ** 2).sum(axes) / count
+            mesh = active_mesh()
+            if mesh is None:
+                count = torch.clamp(m.sum() * x.shape[-1], min=1.0)  # n_valid * C
+                mean = (xf * m).sum(axes) / count
+                var = (m * (xf - mean) ** 2).sum(axes) / count
+            else:
+                sums = mesh.all_reduce_autograd(
+                    torch.cat([(xf * m).sum(axes), m.sum().reshape(1)]), "batch_norm")
+                count = torch.clamp(sums[-1] * x.shape[-1], min=1.0)
+                mean = sums[:-1] / count
+                var = mesh.all_reduce_autograd((m * (xf - mean) ** 2).sum(axes),
+                                               "batch_norm") / count
             with torch.no_grad():
                 mom = self.momentum
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
@@ -162,16 +179,23 @@ class DropoutKey:
     state, no host read, the same masks eager and inside a CUDA graph, and
     the same masks again when a step is recomputed (remat) or retried
     after a skip (a skipped step leaves ``step`` where it was, as the JAX
-    package's ``fold_in(dropout_rng, state.step)`` does)."""
+    package's ``fold_in(dropout_rng, state.step)`` does).
 
-    def __init__(self, seed: torch.Tensor, step: torch.Tensor, stream: int = 0):
-        self.seed, self.step, self.stream = seed, step, stream
+    ``shard`` is the rank of a data-parallel step: every masked tensor has
+    the batch as its leading axis, so rank r's elements sit at offset
+    ``r * numel`` of the global batch's, and its masks are the
+    single-process step's masks of its slice of the global batch."""
+
+    def __init__(self, seed: torch.Tensor, step: torch.Tensor, stream: int = 0,
+                 shard: int = 0):
+        self.seed, self.step, self.stream, self.shard = seed, step, stream, shard
         self.count = 1  # Dropout modules under this key (dropout_rng sets it)
         self._multipliers: Optional[torch.Tensor] = None
 
     def fork(self, index: int) -> "DropoutKey":
         """Stream ``index`` of this key (a tile's own masks)."""
-        key = DropoutKey(self.seed, self.step, (self.stream * 0x9E3779B1 + index + 1) & _M32)
+        key = DropoutKey(self.seed, self.step, (self.stream * 0x9E3779B1 + index + 1) & _M32,
+                         self.shard)
         key.count = self.count
         return key
 
@@ -191,9 +215,11 @@ class DropoutKey:
         """The keep mask (uniform < keep_prob) of module ``index`` for a
         tensor of ``shape``: bool, on ``device``."""
         numel = math.prod(shape)
-        if numel >= 2 ** 32:
-            raise ValueError(f"dropout over {numel} elements: the hash counts below 2**32")
-        idx = torch.arange(1, numel + 1, dtype=torch.int64, device=device)
+        if numel * (self.shard + 1) >= 2 ** 32:
+            raise ValueError(f"dropout over {numel * (self.shard + 1)} elements of the global "
+                             "batch: the hash counts below 2**32")
+        start = self.shard * numel + 1
+        idx = torch.arange(start, start + numel, dtype=torch.int64, device=device)
         h = _mix32((idx * self.multiplier(index)) & _M32)
         return (h < int(keep_prob * 2 ** 32)).reshape(shape)
 

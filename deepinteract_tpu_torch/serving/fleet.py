@@ -312,13 +312,25 @@ def mesh_placement(shape, bucket1: int, bucket2: int,
     return "data"
 
 
-def free_port(host: str = "127.0.0.1") -> int:
-    """An OS-assigned free TCP port (bind-0 probe). Racy in principle;
-    in practice the child binds it within milliseconds, and a lost race
-    surfaces as a spawn-then-crash the restart path already handles."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+def reserve_port(host: str = "127.0.0.1"):
+    """(port, the socket that holds it): an OS-assigned free TCP port,
+    kept bound by the supervisor while its worker starts. The socket sets
+    SO_REUSEADDR and never listens, so the worker's HTTP server (which
+    sets SO_REUSEADDR, as ``http.server`` does) binds and listens on the
+    port, while a plain bind fails and the kernel gives the port to no
+    outgoing connection as its ephemeral port. A bind-0 probe that closes
+    its socket at once left the port free until the worker bound it,
+    which an engine worker does only after its warm-up, seconds later:
+    under load a client connection took the port and the worker died
+    with EADDRINUSE (F12)."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind((host, 0))
-        return int(s.getsockname()[1])
+    except OSError:
+        s.close()
+        raise
+    return int(s.getsockname()[1]), s
 
 
 def request_json(host: str, port: int, method: str, path: str,
@@ -471,6 +483,14 @@ class _Worker:
         self.health: Dict[str, Any] = {}
         self.heartbeat = "unknown"
         self.spawned_at = 0.0  # monotonic stamp of the last spawn
+        # The socket holding ``port`` for this incarnation (reserve_port),
+        # closed when it is replaced or the worker is retired.
+        self.reservation: Optional[socket.socket] = None
+
+    def release_port(self) -> None:
+        if self.reservation is not None:
+            self.reservation.close()
+            self.reservation = None
 
     def snapshot(self) -> Dict[str, Any]:
         return {
@@ -574,6 +594,9 @@ class WorkerSupervisor:
         codes = self.drain_many(
             ids, timeout_s if timeout_s is not None
             else self.cfg.drain_timeout_s)
+        with self._lock:
+            for w in self._workers.values():
+                w.release_port()
         self._persist_state()
         return codes
 
@@ -664,13 +687,14 @@ class WorkerSupervisor:
         with self._lock:
             self._seq += 1
             worker_id = f"w{self._seq}"
-            port = free_port(self.host)
+            port, reservation = reserve_port(self.host)
             w = _Worker(
                 worker_id, port,
                 heartbeat_path=os.path.join(
                     self.state_dir, f"heartbeat_{worker_id}.json"),
                 log_path=os.path.join(self.state_dir, f"{worker_id}.log"),
                 overrides={**self._base_overrides, **(overrides or {})})
+            w.reservation = reservation
             self._workers[worker_id] = w
         self._try_spawn(w, first=True)
         self._update_gauges()
@@ -705,14 +729,14 @@ class WorkerSupervisor:
             return False
         try:
             if not first:
-                # Fresh port per respawn: the old port may have been
-                # taken while the worker sat in backoff (or the bind-0
-                # race was lost), and retrying a doomed port would
-                # convert a transient conflict into a circuit-open
-                # worker. Everything downstream (endpoint(), probes)
-                # reads w.port live.
+                # Fresh (reserved) port per respawn: the old one may be
+                # held by a socket of the dead process, and retrying a
+                # doomed port would convert a transient conflict into a
+                # circuit-open worker. Everything downstream
+                # (endpoint(), probes) reads w.port live.
                 with self._lock:
-                    w.port = free_port(self.host)
+                    w.release_port()
+                    w.port, w.reservation = reserve_port(self.host)
             cmd = self._cmd_fn(w.worker_id, w.port, w.heartbeat_path,
                                w.overrides)
             # The PREVIOUS incarnation's heartbeat must not outlive it:
@@ -1098,6 +1122,8 @@ class WorkerSupervisor:
         with self._lock:  # re-entrant: callers already hold it
             retired = [w.worker_id for w in self._workers.values()
                        if w.state == "retired"]
+            for worker_id in retired:
+                self._workers[worker_id].release_port()
             dropped = retired[:max(0, len(retired) - RETIRED_RETENTION)]
             for worker_id in dropped:
                 del self._workers[worker_id]

@@ -238,6 +238,10 @@ class FleetRouter:
         self._version_rr: Dict[str, float] = {}
         self._shadow: Optional[Dict[str, Any]] = None
         self._shadow_counter = 0
+        # Serializes the shadow ledger's rewrites (disk I/O, outside _lock):
+        # two mirror threads writing at once share the artifact's tmp name
+        # and could land an older snapshot's file beside a newer sidecar.
+        self._ledger_lock = threading.Lock()
         self._shadow_samples = 0
         self._shadow_agree = 0
         self._shadow_ledger: List[Dict[str, Any]] = []
@@ -1259,18 +1263,20 @@ class FleetRouter:
         """Append to the in-memory ledger and rewrite the WHOLE JSONL
         atomically (artifact + integrity sidecar): a reader — the
         promotion rule, an operator's tail — sees a complete, verifiable
-        ledger or the previous one, never a torn line."""
-        with self._lock:
-            self._shadow_ledger.append(entry)
-            data = "".join(json.dumps(e, sort_keys=True) + "\n"
-                           for e in self._shadow_ledger)
-            entries = len(self._shadow_ledger)
-        try:
-            artifacts.atomic_write_artifact(
-                path, data, "agreement_ledger",
-                extra={"entries": entries})
-        except OSError as exc:
-            logger.warning("shadow: ledger write failed: %s", exc)
+        ledger or the previous one, never a torn line. Rewrites are
+        serialized in append order, so the newest ledger lands last."""
+        with self._ledger_lock:
+            with self._lock:
+                self._shadow_ledger.append(entry)
+                data = "".join(json.dumps(e, sort_keys=True) + "\n"
+                               for e in self._shadow_ledger)
+                entries = len(self._shadow_ledger)
+            try:
+                artifacts.atomic_write_artifact(
+                    path, data, "agreement_ledger",
+                    extra={"entries": entries})
+            except OSError as exc:
+                logger.warning("shadow: ledger write failed: %s", exc)
 
     # -- observability -----------------------------------------------------
 

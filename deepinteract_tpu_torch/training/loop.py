@@ -1,7 +1,7 @@
 """The training loop: epochs, validation, early stopping, checkpoints,
 resume, SWA, dispatch runs, the input pipeline and telemetry.
 
-Port of ``deepinteract_tpu/training/loop.py`` on one device: a
+Port of ``deepinteract_tpu/training/loop.py``: a
 :class:`Trainer` that runs train epochs of :func:`~.steps.train_step`
 under the non-finite guard, evaluates the reference's metric suite
 (median over complexes; L = n1 + n2 at validation, min(n1, n2) at test)
@@ -61,7 +61,20 @@ epoch scalars go through the metric writer and the registry
 ``[1, 1 + profile_steps)`` with ``torch.profiler`` as a phase-labeled
 Chrome trace, attributed on the spot into the ``di_train_profile_*``
 gauges (``obs/attribution.py``). An abort on ``max_bad_steps`` writes a
-diagnostics JSON first. Multi-device dispatch is not ported.
+diagnostics JSON first.
+
+Data parallel (``mesh``, a ``parallel.mesh.DataMesh``; the JAX trainer
+with a mesh): every rank runs this loop on its slice of the same global
+plan, and each train step is the global batch's (``parallel/train.py``).
+Rank 0 alone keeps the checkpointer, the sidecar, the span log, the
+metric writer and the visualisations; every rank beats its own
+``heartbeat_p{rank}.json``. A resume restores on rank 0 and broadcasts
+the scalars, the partial epoch's loss ledger and the state, written in
+place into the tensors the captured graphs address. Preemption is agreed
+at epoch boundaries by an all-gather of the local flag (a rank-local
+raise would strand its peers in the next collective); evaluation stays
+replicated, and its first batch and the loader's length are checked
+across ranks. SWA refreshes the batch statistics over the global batch.
 
 Data sources are callables ``epoch -> iterable of PairedComplex`` (the
 loader re-shuffles per epoch) or plain sequences of padded batches.
@@ -88,6 +101,8 @@ from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.obs import metrics as obs_metrics
 from deepinteract_tpu_torch.obs import spans as obs_spans
 from deepinteract_tpu_torch.obs.heartbeat import Heartbeat
+from deepinteract_tpu_torch.parallel import multihost
+from deepinteract_tpu_torch.parallel.mesh import DataMesh, data_parallel
 from deepinteract_tpu_torch.robustness import artifacts, faults
 from deepinteract_tpu_torch.robustness.guards import (NonFiniteTrainingError,
                                                       dump_diagnostics, summarize_batch)
@@ -146,8 +161,8 @@ class LoopConfig:
     # thread, so the JAX package's fallback for a device snapshot that
     # exhausts device memory has no counterpart here.
     async_checkpoint: bool = True
-    # Write <ckpt_dir>/obs/heartbeat_p0.json every N seconds from a daemon
-    # thread (0: no heartbeat): host, span path, progress step and time.
+    # Write <ckpt_dir>/obs/heartbeat_p{rank}.json every N seconds from a
+    # daemon thread (0: no heartbeat): host, span path, progress step and time.
     heartbeat_seconds: float = 0.0
     # Log predicted and true contact-map images of the first validation
     # complex to the metric writer every N epochs (0: off).
@@ -351,12 +366,17 @@ class Trainer:
     """Runs train and validation epochs of a :class:`DeepInteract` on the
     device its parameters are on. ``metric_writer`` (``add_scalar`` /
     ``add_image``: a TensorBoard writer, :class:`~.wandb_logger.WandbWriter`
-    or a fan-out of them) receives the epoch scalars and viz images."""
+    or a fan-out of them) receives the epoch scalars and viz images.
+    ``mesh`` makes the train steps data-parallel over its ranks."""
 
     def __init__(self, model: DeepInteract, loop_cfg: LoopConfig = LoopConfig(),
                  optim_cfg: Optional[OptimConfig] = None,
-                 log_fn: Callable[[str], None] = print, metric_writer=None):
+                 log_fn: Callable[[str], None] = print, metric_writer=None,
+                 mesh: Optional[DataMesh] = None):
         self.model = model
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        self.world = 1 if mesh is None else mesh.world
         self.cfg = loop_cfg
         self.optim_cfg = optim_cfg or OptimConfig()
         self.log = log_fn
@@ -393,7 +413,8 @@ class Trainer:
         if not self.cfg.step_graphs or next(state.model.parameters()).device.type != "cuda":
             return None
         if self._graphs is None or self._graphs.state is not state:
-            self._graphs = StepGraphs(state, self.cfg.weight_classes, self.cfg.nonfinite_guard)
+            self._graphs = StepGraphs(state, self.cfg.weight_classes, self.cfg.nonfinite_guard,
+                                      self.mesh)
         return self._graphs
 
     def _progress(self, **fields) -> None:
@@ -438,7 +459,11 @@ class Trainer:
         k = max(1, self.cfg.eval_batches_per_dispatch)
         device = next(state.model.parameters()).device
         graphs = self.step_graphs(state)
+        checked = self.world <= 1
         for run in _shape_runs(_iter_data(data, 0), k):
+            if not checked:
+                checked = True
+                self._check_ranks_agree(data, run[0])
             self._check_preempt()
             # Eval dispatches are progress too: a long validation must not
             # read as a hung step loop to the supervisor.
@@ -458,9 +483,36 @@ class Trainer:
         return {(f"med_{stage}_{k[4:]}" if k.startswith("med_") else f"{stage}_{k}"): v
                 for k, v in M.aggregate_median(per_complex).items()}
 
-    def _check_preempt(self) -> None:
-        if self._preempt is not None:
-            self._preempt.check()
+    def _check_ranks_agree(self, data: DataSource, batch: PairedComplex) -> None:
+        """Evaluation is replicated: every rank must feed the same batches.
+        Checked on the first batch with the loader's length, on every rank
+        (a collective of the host group): ranks with different lengths would
+        otherwise leave the loop at different points."""
+        sizer = getattr(data, "num_batches", None)
+        try:
+            n_batches = float(sizer() if callable(sizer) else len(data))  # type: ignore[arg-type]
+        except TypeError:
+            n_batches = -1.0  # an unsized source: the first batch only
+        cm = batch.contact_map
+        multihost.assert_same_across_hosts(
+            [float(batch.graph1.num_nodes.sum()), float(batch.graph2.num_nodes.sum()),
+             *map(float, cm.shape), float(cm.sum()), n_batches],
+            "evaluate: ranks fed different first batches or loader lengths - the eval "
+            "loaders must be the same (unsharded) on every rank")
+
+    def _check_preempt(self, epoch_boundary: bool = False) -> None:
+        """The preemption poll: at every dispatch for one process; with
+        several, only at epoch boundaries and by an all-gather of the local
+        flag, so every rank raises together."""
+        if self._preempt is None:
+            return
+        if self.world > 1:
+            if not epoch_boundary:
+                return
+            if multihost.any_across_hosts(self._preempt.requested) and \
+                    not self._preempt.requested:
+                self._preempt.request("preemption requested on a peer rank")
+        self._preempt.check()
 
     def _epoch_source(self, data: DataSource, epoch: int, start_batch: int, skips_used: int):
         """The epoch's batches from a mid-epoch cursor: a loader with a
@@ -678,7 +730,8 @@ class Trainer:
             """K steps (graph replays on the card) and the start of their
             metrics' copy to the host; nothing waits here."""
             self.steps_run += len(batches)
-            return _Fetch(multi_train_step(state, batches, cfg.weight_classes, guard, graphs))
+            return _Fetch(multi_train_step(state, batches, cfg.weight_classes, guard, graphs,
+                                           self.mesh))
 
         pending: Optional[_Fetch] = None  # the last full run, read after the next dispatch
 
@@ -776,17 +829,21 @@ class Trainer:
                          recent_runs) -> None:
         """Write the diagnostics JSON (the last steps' loss and grad norm,
         a summary of the last two runs' batches) into ckpt_dir, or the
-        working directory, and raise NonFiniteTrainingError."""
+        working directory (rank 0 only: every rank reads the same global
+        counts and aborts at the same step), and raise
+        NonFiniteTrainingError."""
         cfg = self.cfg
-        path = dump_diagnostics(cfg.ckpt_dir or ".", {
-            "epoch": epoch, "step": step, "consecutive_bad_steps": consecutive,
-            "max_bad_steps": cfg.max_bad_steps, "recent_metrics": list(recent_metrics),
-            "recent_batches": [summarize_batch(b) for run in recent_runs for b in run]})
+        path = None
+        if self.rank == 0:
+            path = dump_diagnostics(cfg.ckpt_dir or ".", {
+                "epoch": epoch, "step": step, "consecutive_bad_steps": consecutive,
+                "max_bad_steps": cfg.max_bad_steps, "recent_metrics": list(recent_metrics),
+                "recent_batches": [summarize_batch(b) for run in recent_runs for b in run]})
         _NONFINITE_ABORTS.inc()
         raise NonFiniteTrainingError(
             f"aborting: {consecutive} consecutive non-finite train steps (epoch {epoch}, "
-            f"step {step}, max_bad_steps={cfg.max_bad_steps}); diagnostics: {path}",
-            diagnostics_path=path)
+            f"step {step}, max_bad_steps={cfg.max_bad_steps})"
+            + (f"; diagnostics: {path}" if path else ""), diagnostics_path=path)
 
     def _make_midsave(self, ckpt: Checkpointer, saver: _Saver, epoch: int,
                       stopper: EarlyStopping, losses: List[float], stats: Dict[str, float],
@@ -811,6 +868,23 @@ class Trainer:
             self._progress(phase="midepoch_checkpoint", epoch=epoch)
 
         return midsave
+
+    def _share_resume(self, state: TrainState, stopper: EarlyStopping,
+                      cursor: ResumeCursor, restored: bool) -> ResumeCursor:
+        """Rank 0's resume on every rank: the scalars and the partial
+        epoch's loss ledger over the host group, then, when a checkpoint
+        was restored, every state tensor broadcast in place (the step graphs
+        keep addressing them)."""
+        vec = multihost.broadcast_floats(
+            [float(restored), cursor.epoch, stopper.best, stopper.stale_epochs, cursor.batch,
+             cursor.skips_used, cursor.skipped_steps, len(cursor.losses)])
+        stopper.best, stopper.stale_epochs = vec[2], int(vec[3])
+        n = int(vec[7])
+        losses = multihost.broadcast_floats(cursor.losses if self.rank == 0 else [0.0] * n) \
+            if n else []
+        if vec[0]:
+            self.mesh.broadcast_(state.tensors() + [state.seed_t])
+        return ResumeCursor(int(vec[1]), int(vec[4]), int(vec[5]), int(vec[6]), losses)
 
     def _resume(self, ckpt: Checkpointer, state: TrainState,
                 stopper: EarlyStopping) -> ResumeCursor:
@@ -915,9 +989,12 @@ class Trainer:
             write_sidecar(cfg.ckpt_dir, {"epoch": epoch + 1, "stopper_best": stopper.best,
                                          "stopper_stale": stopper.stale_epochs,
                                          "telemetry": telemetry})
-        if cfg.max_time_seconds and time.time() - t_start > cfg.max_time_seconds:
-            self.log("max_time reached; stopping")
-            stop = True
+        if cfg.max_time_seconds:
+            # Each rank reads its own clock: the ranks stop together when any
+            # of them is out of time.
+            if multihost.any_across_hosts(time.time() - t_start > cfg.max_time_seconds):
+                self.log("max_time reached; stopping")
+                stop = True
         return stop
 
     def fit(self, state: TrainState, train_data: DataSource,
@@ -927,13 +1004,18 @@ class Trainer:
         epoch run). With ``resume`` and a checkpoint under ``ckpt_dir``, the
         run continues from its newest position."""
         cfg = self.cfg
+        # Rank 0 alone checkpoints: the state is the same on every rank.
         ckpt = Checkpointer(CheckpointConfig(directory=cfg.ckpt_dir,
                                              metric_to_track=cfg.metric_to_track,
-                                             save_top_k=cfg.save_top_k)) if cfg.ckpt_dir else None
+                                             save_top_k=cfg.save_top_k)) \
+            if cfg.ckpt_dir and self.rank == 0 else None
         stopper = EarlyStopping(metric_mode(cfg.metric_to_track), cfg.patience, cfg.min_delta)
         cursor = ResumeCursor()
-        if resume and ckpt is not None and ckpt.has_restorable():
+        restored = resume and ckpt is not None and ckpt.has_restorable()
+        if restored:
             cursor = self._resume(ckpt, state, stopper)
+        if resume and self.world > 1:
+            cursor = self._share_resume(state, stopper, cursor, restored)
         epochs = cfg.num_epochs if num_epochs is None else num_epochs
         swa_first = int(math.ceil(cfg.swa_epoch_start * epochs))
         swa_params: Optional[List[torch.Tensor]] = None
@@ -946,23 +1028,23 @@ class Trainer:
             # Started right before the try whose finally stops it, so no
             # setup failure above can leave a beating thread behind.
             self._heartbeat = Heartbeat(
-                os.path.join(cfg.ckpt_dir or ".", "obs",
-                             "heartbeat_p0.json"),
-                interval_s=cfg.heartbeat_seconds).start()
+                os.path.join(cfg.ckpt_dir or ".", "obs", f"heartbeat_p{self.rank}.json"),
+                interval_s=cfg.heartbeat_seconds, process_index=self.rank,
+                process_count=self.world).start()
         t_start = time.time()
         abort: Optional[Exception] = None
         device = next(state.model.parameters()).device
         self._install_device_prefetch(train_data, device)
         # The span log of this run; a sink this fit opened, this fit closes.
         own_span_sink = False
-        if cfg.span_log and cfg.ckpt_dir and not obs_spans.configured():
+        if cfg.span_log and cfg.ckpt_dir and self.rank == 0 and not obs_spans.configured():
             obs_spans.configure(os.path.join(cfg.ckpt_dir, "obs", "events.jsonl"))
             own_span_sink = True
         try:
             if preempt is not None:
                 preempt.__enter__()
             for epoch in range(cursor.epoch, epochs):
-                self._check_preempt()
+                self._check_preempt(epoch_boundary=True)
                 with obs_spans.span("epoch", epoch=epoch):
                     stop = self._run_epoch(state, epoch, cursor, history, train_data, val_data,
                                            ckpt, saver, stopper, t_start)
@@ -1014,11 +1096,13 @@ class Trainer:
     @torch.no_grad()
     def refresh_batch_stats(self, state: TrainState, data: DataSource) -> None:
         """One train-mode pass over epoch 0 of ``data`` without gradients:
-        the batch-norm running statistics of the current parameters."""
+        the batch-norm running statistics of the current parameters (over
+        the global batches of a data-parallel run)."""
         model = state.model
         device = next(model.parameters()).device
         model.train()
-        with dropout_rng(model, DropoutKey(state.seed_t, state.step_t)):
+        key = DropoutKey(state.seed_t, state.step_t, shard=self.rank)
+        with dropout_rng(model, key), data_parallel(self.mesh):
             for batch in _iter_data(data, 0):
                 batch = batch.to(device)
                 model(batch.graph1, batch.graph2)

@@ -27,11 +27,14 @@ from deepinteract_tpu_torch.training.steps import create_train_state, train_step
 def lr_find(model: DeepInteract, data: Iterable[PairedComplex],
             optim_cfg: Optional[OptimConfig] = None, min_lr: float = 1e-6,
             max_lr: float = 1.0, num_steps: int = 30, seed: int = 42,
-            weight_classes: bool = False) -> Tuple[float, List[Tuple[float, float]]]:
+            weight_classes: bool = False,
+            mesh=None) -> Tuple[float, List[Tuple[float, float]]]:
     """Returns (suggested lr, [(lr, loss), ...]). ``data`` is cycled when
     it holds fewer than ``num_steps`` batches. Step i runs at ``min_lr *
     (max_lr / min_lr) ** (i / (num_steps - 1))`` under the optimizer chain
-    without accumulation."""
+    without accumulation. With a data-parallel ``mesh`` the steps are the
+    global batch's (``data`` is this rank's slice), so every rank sees the
+    same losses and suggests the same rate."""
     cfg = dataclasses.replace(optim_cfg or OptimConfig(), lr=min_lr, accumulate_steps=1)
     ratio = max_lr / min_lr
     span = max(num_steps - 1, 1)
@@ -43,7 +46,7 @@ def lr_find(model: DeepInteract, data: Iterable[PairedComplex],
     best = np.inf
     for i in range(num_steps):
         lr = min_lr * ratio ** (i / span)
-        loss = train_step(state, batches[i % len(batches)], weight_classes)["loss"]
+        loss = train_step(state, batches[i % len(batches)], weight_classes, mesh=mesh)["loss"]
         history.append((lr, loss))
         if np.isfinite(loss):
             best = min(best, loss)

@@ -18,24 +18,33 @@ import torch.nn.functional as F
 DEFAULT_CLASS_WEIGHTS = (1.0, 5.0)
 
 
-def _weighted_ce(logits, labels, mask, weight_classes: bool, class_weights) -> torch.Tensor:
+def _weighted_ce(logits, labels, mask, weight_classes: bool, class_weights,
+                 mesh=None) -> torch.Tensor:
     """-sum(w * log p[label]) / max(sum(w), 1) with w = mask (times the
-    label's class weight): torch ``CrossEntropyLoss``'s (weighted) mean."""
+    label's class weight): torch ``CrossEntropyLoss``'s (weighted) mean.
+    With a data-parallel ``mesh`` the denominator is the weight sum of the
+    global batch (all-reduced, no gradient): the ranks' terms then add up
+    to the global batch's loss, as a mean of per-rank means would not
+    where ranks hold different numbers of valid pairs."""
     ll = torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None].long())[..., 0]
     w = mask.to(logits.dtype)
     if weight_classes:
         # A select, not an index into a tensor built from the tuple: that
         # would copy from the host inside a captured step.
         w = torch.where(labels.long() == 1, class_weights[1], class_weights[0]).to(w.dtype) * w
-    return -(w * ll).sum() / torch.clamp(w.sum(), min=1.0)
+    total = w.sum() if mesh is None else mesh.all_reduce(w.sum(), "loss")
+    return -(w * ll).sum() / torch.clamp(total, min=1.0)
 
 
 def contact_loss(logits: torch.Tensor, contact_map: torch.Tensor, pair_mask: torch.Tensor,
                  weight_classes: bool = False,
-                 class_weights: Tuple[float, float] = DEFAULT_CLASS_WEIGHTS) -> torch.Tensor:
+                 class_weights: Tuple[float, float] = DEFAULT_CLASS_WEIGHTS,
+                 mesh=None) -> torch.Tensor:
     """Masked mean cross entropy over the dense pair map. logits
-    [B, L1, L2, 2]; contact_map [B, L1, L2] int; pair_mask [B, L1, L2]."""
-    return _weighted_ce(logits, contact_map, pair_mask, weight_classes, class_weights)
+    [B, L1, L2, 2]; contact_map [B, L1, L2] int; pair_mask [B, L1, L2].
+    With a data-parallel ``mesh`` (``parallel.mesh.DataMesh``): this
+    rank's term of the global batch's loss, ``S_r / max(sum_r W_r, 1)``."""
+    return _weighted_ce(logits, contact_map, pair_mask, weight_classes, class_weights, mesh)
 
 
 def example_gather_loss(logits: torch.Tensor, examples: torch.Tensor,

@@ -37,7 +37,16 @@ What a capture bakes in, and why it stays valid:
 * **counts**: K1's and K2's launch counters and the CSR build counter run
   in Python, so they move at a capture (and in its warm-up runs) and not
   at a replay: an entry records its capture's counts, ``replays`` its
-  replays.
+  replays. So does ``parallel.mesh.ALL_REDUCES``: ``all_reduces`` is what
+  a data-parallel capture baked in, by site.
+* **collectives**: with a mesh (``parallel/train.py``) a train capture
+  holds the step's all-reduces (loss, batch norms and their backward, the
+  flat gradient), NCCL on the card, captured like any kernel; the
+  communicator exists before the first capture
+  (``multihost.initialize_distributed``) and the warm-up runs them
+  eagerly. Every rank plans the same global batches, so every rank
+  captures the same key at the same step: a capture is a collective too.
+  A collective that cannot be captured fails the capture, which raises.
 
 A capture that fails raises with the key; the key is never run eagerly
 instead. On the CPU nothing is captured: the loop runs the bodies eagerly.
@@ -47,7 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,6 +64,8 @@ from deepinteract_tpu_torch.data.graph import PairedComplex, ProteinGraph
 from deepinteract_tpu_torch.data.pipeline import tensors
 from deepinteract_tpu_torch.device import graph_capture
 from deepinteract_tpu_torch.ops import cuda_attention
+from deepinteract_tpu_torch.parallel import mesh as mesh_lib
+from deepinteract_tpu_torch.parallel.mesh import DataMesh
 from deepinteract_tpu_torch.training.steps import (TrainState, eval_step_body,
                                                    train_step_body)
 
@@ -84,11 +95,15 @@ def _launch_counts() -> Tuple[int, int, int]:
             cuda_attention.edge_attention_backward.launches, cuda_attention.in_edge_csr.builds)
 
 
+def _all_reduces() -> Dict[str, int]:
+    return dict(mesh_lib.ALL_REDUCES)
+
+
 class _Entry:
     """One key's captured step: static inputs, the graph, its outputs.
     ``seconds`` is the capture wall (warm-up, snapshot and capture);
-    ``k1_launches``, ``k2_launches`` and ``csr_builds`` are the counters'
-    moves during the capture alone."""
+    ``k1_launches``, ``k2_launches``, ``csr_builds`` and ``all_reduces``
+    (by site) are the counters' moves during the capture alone."""
 
     kind = ""
 
@@ -100,7 +115,7 @@ class _Entry:
         try:
             self._warm_up(state, body, device)
             marks.append(time.perf_counter())
-            before = _launch_counts()
+            before, reduces_before = _launch_counts(), _all_reduces()
             self.graph = torch.cuda.CUDAGraph()
             with graph_capture(self.graph, pool):
                 marks.append(time.perf_counter())
@@ -112,6 +127,9 @@ class _Entry:
                                f"{exc}") from exc
         self.k1_launches, self.k2_launches, self.csr_builds = (
             a - b for a, b in zip(_launch_counts(), before))
+        self.all_reduces = {site: n - reduces_before.get(site, 0)
+                            for site, n in _all_reduces().items()
+                            if n != reduces_before.get(site, 0)}
         self.seconds = marks[-1] - marks[0]
         # Where a capture's seconds go: the warm-up (and its snapshot), the
         # capture context's set-up, the body's pass, the graph's instantiation.
@@ -165,14 +183,16 @@ class EvalEntry(_Entry):
 class StepGraphs:
     """The step graphs of one :class:`TrainState` on the card: a train and
     an eval entry per key, captured at the key's first step, sharing one
-    memory pool."""
+    memory pool. With ``mesh`` the train steps are data-parallel and hold
+    their collectives; the eval steps stay replicated."""
 
-    def __init__(self, state: TrainState, weight_classes: bool = False, guard: bool = False):
+    def __init__(self, state: TrainState, weight_classes: bool = False, guard: bool = False,
+                 mesh: Optional[DataMesh] = None):
         device = next(state.model.parameters()).device
         if device.type != "cuda":
             raise ValueError(f"step graphs need a model on a CUDA device, got {device}")
         self.state = state
-        self.weight_classes, self.guard = weight_classes, guard
+        self.weight_classes, self.guard, self.mesh = weight_classes, guard, mesh
         self.pool = torch.cuda.graph_pool_handle()
         self.train_entries: Dict[Tuple, TrainEntry] = {}
         self.eval_entries: Dict[Tuple, EvalEntry] = {}
@@ -185,7 +205,8 @@ class StepGraphs:
         if entry is None:
             entry = self.train_entries[key] = TrainEntry(
                 self.state, batch, self.pool,
-                lambda b: train_step_body(self.state, b, self.weight_classes, self.guard))
+                lambda b: train_step_body(self.state, b, self.weight_classes, self.guard,
+                                          self.mesh))
         return entry.replay(batch)
 
     def eval(self, batch: PairedComplex) -> Dict[str, torch.Tensor]:
@@ -204,8 +225,9 @@ class StepGraphs:
 
     def inventory(self) -> List[Dict]:
         """Per entry: kind, key shapes, capture seconds and their split,
-        (K1, K2, CSR builds) at its capture, replays."""
+        (K1, K2, CSR builds) and all-reduces by site at its capture,
+        replays."""
         return [{"kind": e.kind, "key": [list(shape) for shape, _ in e.key],
                  "capture_s": e.seconds, **e.split,
                  "counts": (e.k1_launches, e.k2_launches, e.csr_builds),
-                 "replays": e.replays} for e in self.entries()]
+                 "all_reduces": e.all_reduces, "replays": e.replays} for e in self.entries()]

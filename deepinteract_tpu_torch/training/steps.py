@@ -32,6 +32,7 @@ from deepinteract_tpu_torch.data.graph import PairedComplex
 from deepinteract_tpu_torch.data.pipeline import is_placed
 from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
+from deepinteract_tpu_torch.parallel.mesh import DataMesh, data_parallel
 from deepinteract_tpu_torch.robustness.guards import apply_guarded_update
 from deepinteract_tpu_torch.training.objective import contact_loss
 from deepinteract_tpu_torch.training.optim import OptimConfig, Optimizer
@@ -113,7 +114,7 @@ def create_train_state(model: DeepInteract, seed: int = 42,
 
 
 def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
-                    guard: bool = False) -> torch.Tensor:
+                    guard: bool = False, mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """One optimization step on ``batch`` (on the model's device), with no
     host read, so that it can be captured in a CUDA graph: train-mode
     forward with dropout keyed on (seed, step), the loss, its backward
@@ -122,7 +123,14 @@ def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: boo
     a non-finite step skips it on the device
     (:func:`~deepinteract_tpu_torch.robustness.guards.apply_guarded_update`).
     Returns float32 [4]: :data:`METRICS` (``bad_step``, ``bad_steps`` 0
-    without the guard). The gradients stay in ``.grad``."""
+    without the guard). The gradients stay in ``.grad``.
+
+    With a data-parallel ``mesh`` (``parallel/train.py``) ``batch`` is this
+    rank's slice of the global batch and the step is the global batch's:
+    the loss over the global weight sum, batch statistics over the global
+    batch, dropout masks of the rank's slice, and the flat gradient summed
+    over the ranks before the norm; the loss reported is the global one.
+    So every rank takes the same guard decision and the same update."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad()
@@ -131,11 +139,16 @@ def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: boo
         with torch.no_grad():
             for dst, src in zip(backup, buffers):
                 dst.copy_(src)
-    with dropout_rng(model, DropoutKey(state.seed_t, state.step_t)):
+    key = DropoutKey(state.seed_t, state.step_t, shard=0 if mesh is None else mesh.rank)
+    with dropout_rng(model, key), data_parallel(mesh):
         logits = model(batch.graph1, batch.graph2)
-        loss = contact_loss(logits, batch.contact_map, batch.pair_mask, weight_classes)
+        loss = contact_loss(logits, batch.contact_map, batch.pair_mask, weight_classes,
+                            mesh=mesh)
         loss.backward()
     loss = loss.detach().float()
+    if mesh is not None:
+        loss = mesh.all_reduce(loss, "loss")
+        mesh.all_reduce_(opt.grads(), "grads")
     norm = torch.linalg.vector_norm(opt.grads())
     if guard:
         finite = apply_guarded_update(state, loss, norm, buffers, backup)
@@ -155,33 +168,35 @@ def _metrics(values: torch.Tensor, guard: bool) -> Dict[str, torch.Tensor]:
 
 
 def train_step(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
-               guard: bool = False) -> Dict[str, float]:
+               guard: bool = False, mesh: Optional[DataMesh] = None) -> Dict[str, float]:
     """One eager optimization step on ``batch`` (moved to the model's
     device unless the placement stage already put it there): the body,
     then one host read of its metrics. Returns ``loss`` and the pre-clip
     ``grad_norm`` over every parameter; with ``guard`` also ``bad_step``
-    (0/1) and ``bad_steps`` (consecutive skips after this step)."""
+    (0/1) and ``bad_steps`` (consecutive skips after this step). ``mesh``:
+    a data-parallel step (:func:`train_step_body`)."""
     device = _device(state.model)
     if not is_placed(batch, device):
         batch = batch.to(device)
-    values = train_step_body(state, batch, weight_classes, guard).tolist()
+    values = train_step_body(state, batch, weight_classes, guard, mesh).tolist()
     return dict(zip(METRICS[:4 if guard else 2], values))
 
 
 def multi_train_step(state: TrainState, batches: Sequence[PairedComplex],
                      weight_classes: bool = False, guard: bool = False,
-                     graphs=None) -> Dict[str, torch.Tensor]:
+                     graphs=None, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """K optimization steps over same-shape batches (placed on the
     model's device), the JAX ``multi_train_step``'s meaning: the same
     updates as K :func:`train_step` calls, and metrics with a leading [K]
     axis, left on the device. With ``graphs`` (a
     ``step_graphs.StepGraphs`` of this state) each step replays the
-    batches' key's CUDA graph, else the body runs eagerly. No host read."""
+    batches' key's CUDA graph (captured with its own mesh), else the body
+    runs eagerly, data-parallel with ``mesh``. No host read."""
     device = _device(state.model)
     out = torch.empty((len(batches), len(METRICS)), device=device)
     for j, batch in enumerate(batches):
         values = (graphs.train(batch) if graphs is not None
-                  else train_step_body(state, batch, weight_classes, guard))
+                  else train_step_body(state, batch, weight_classes, guard, mesh))
         out[j].copy_(values)
     return _metrics(out, guard)
 

@@ -428,6 +428,39 @@ def wait_shadow_samples(host, port, n, timeout=20.0):
     raise AssertionError(f"never reached {n} shadow samples: {record}")
 
 
+def test_concurrent_shadow_ledger_appends_land_whole_and_in_order(tmp_path, monkeypatch,
+                                                                  caplog):
+    """Mirror threads append to the shadow ledger at once. Each rewrite of
+    the artifact is serialized: none fails on the shared tmp name, and the
+    ledger on disk is the whole one, verified by its sidecar (an older
+    snapshot landing after a newer one failed the e2e test below under
+    load). A slow fsync widens the window between a rewrite's tmp file and
+    its rename, as a loaded disk does."""
+    real_fsync = artifacts.os.fsync
+
+    def slow_fsync(fd):
+        time.sleep(0.002)
+        real_fsync(fd)
+
+    monkeypatch.setattr(artifacts.os, "fsync", slow_fsync)
+    router = FleetRouter(make_supervisor(tmp_path, n=0), port=0)
+    ledger = str(tmp_path / "ledger.jsonl")
+    threads = [threading.Thread(target=lambda t=t: [
+        router._append_ledger(ledger, {"thread": t, "i": i}) for i in range(10)])
+        for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    router.httpd.server_close()
+    assert not [r for r in caplog.records if "ledger write failed" in r.getMessage()]
+    artifacts.verify_file(ledger, kind="agreement_ledger")
+    entries = [json.loads(line) for line in open(ledger).read().splitlines()]
+    assert len(entries) == 80
+    for t in range(8):
+        assert [e["i"] for e in entries if e["thread"] == t] == list(range(10))
+
+
 def test_shadow_ledger_and_promotion_e2e(tmp_path):
     """The canary/shadow e2e acceptance: shadow traffic flows to the
     candidate, the agreement ledger lands atomically (artifact +

@@ -316,6 +316,44 @@ def test_supervisor_restarts_sigkilled_worker_with_backoff(tmp_path):
         sup.stop(timeout_s=5.0)
 
 
+def _late_binding_stub_cmd(worker_id, port, heartbeat_path, overrides):
+    """The stub worker, started 1.5 s late: an engine worker binds its
+    port only after its warm-up."""
+    from deepinteract_tpu_torch.serving.fleet import stub_worker_cmd
+
+    cmd = stub_worker_cmd(worker_id, port, heartbeat_path, overrides)
+    assert cmd[1:3] == ["-m", "deepinteract_tpu_torch.serving.worker_stub"]
+    return [cmd[0], "-c", "import runpy, time; time.sleep(1.5); runpy.run_module("
+            "'deepinteract_tpu_torch.serving.worker_stub', run_name='__main__')", *cmd[3:]]
+
+
+def test_a_starting_workers_port_is_held_until_the_worker_binds(tmp_path):
+    """F12: a fleet record counted 2 unplanned restarts on the card, one of
+    them a rollover worker that died with EADDRINUSE. Its port came from a
+    bind-0 probe whose socket closed at once, and the worker binds only
+    after its warm-up, so a client connection took the port as its
+    ephemeral one. The supervisor now holds each worker's port
+    (``reserve_port``) while the worker starts: a plain bind of it fails
+    (as a connection's would), the worker binds it and comes up without a
+    restart, and the hold ends when the worker is retired."""
+    import socket
+
+    sup = make_supervisor(tmp_path, n=1, cmd_fn=_late_binding_stub_cmd)
+    try:
+        sup.start()
+        (info,) = sup.worker_infos()
+        with socket.socket() as thief, pytest.raises(OSError):
+            thief.bind(("127.0.0.1", info["port"]))
+        wait_routable(sup, 1)
+        info = sup.worker_info(info["worker_id"])
+        assert info["state"] == "healthy" and info["restarts"] == 0
+        assert http_get("127.0.0.1", info["port"], "/healthz")[0] == 200
+    finally:
+        sup.stop(timeout_s=5.0)
+    with sup._lock:
+        assert all(w.reservation is None for w in sup._workers.values())
+
+
 @pytest.mark.chaos
 def test_circuit_breaker_opens_on_flapping_worker(tmp_path):
     sup = make_supervisor(tmp_path, n=1, overrides={"crash_after_s": 0.05},

@@ -210,8 +210,8 @@ def test_bfloat16_policy_runs_on_cpu(carried):
 
 # The training lifecycle's, the model configurations', serving's, the
 # split-phase subsystems', the fleet's, the training input path's, the
-# featurization front end's and the ops tooling's modules, named so that the check below fails if
-# one of them stops being importable on its own.
+# featurization front end's, the ops tooling's and data-parallel training's modules, named so
+# that the check below fails if one of them stops being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
@@ -230,7 +230,8 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.guards", "models.layers",
     "pipeline.pdb", "pipeline.native", "pipeline.residue_features", "pipeline.postprocess",
     "pipeline.pair", "data.analysis", "data.convert", "cli.build_dataset", "cli.analyze",
-    "obs.device", "obs.attribution", "obs.kernelquery", "cli.attribute", "cli.fsck"))
+    "obs.device", "obs.attribution", "obs.kernelquery", "cli.attribute", "cli.fsck",
+    "parallel.multihost", "parallel.mesh", "parallel.train"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
