@@ -3605,6 +3605,62 @@ def _check_data_parallel(seen, reduces, bn_calls, train_keys) -> dict:
             "train_captures": len(trains), "bn_calls_per_step": per_step_bn}
 
 
+def _pair_sites(cfg) -> dict:
+    """The pair-group collectives of one dilated decode of ``cfg``, by site:
+    a halo per 3x3 (every bottleneck block) and per attention stage, two
+    statistics sums per instance norm (three per base block and the entry
+    one), one per squeeze-excitation (every block)."""
+    d = cfg.decoder
+    base, phase2 = d.num_chunks * len(d.dilation_cycle), len(d.dilation_cycle) + 2
+    return {"halo": base + phase2 + (2 if d.use_attention else 0),
+            "pair_norm": 2 * (1 + 3 * base), "pair_se": base + phase2}
+
+
+def _check_pair_shard(seen, reduces, cfg, train_keys, eval_keys) -> dict:
+    """The ``--shard_pair_map`` run at P = 1 (one-rank NCCL groups): one
+    inventory over a pair group of one; every train capture holds the data
+    step's collectives and the predicted pair-group ones with their
+    backward, every eval capture the forward's, the loss's two sums and
+    the row gather; what was issued is those counts per counted run; the
+    group is destroyed after the run."""
+    import torch.distributed as dist
+
+    check(len(seen) == 1 and seen[0].mesh is not None and seen[0].mesh.pair is not None,
+          f"pair-sharded run: {len(seen)} step-graph inventories")
+    graphs = seen[0]
+    mesh = graphs.mesh
+    check(mesh.backend == "nccl" and mesh.world == 1 and mesh.pair.size == 1,
+          f"pair-sharded run: backend {mesh.backend}, world {mesh.world}, pair axis "
+          f"{mesh.pair.size}")
+    check(not dist.is_initialized(), "pair-sharded run: the process group outlived the run")
+    fwd = _pair_sites(cfg)
+    want_eval = {**fwd, "pair_loss": 2, "pair_gather": 1}
+    trains = list(graphs.train_entries.values())
+    evals = list(graphs.eval_entries.values())
+    for e in trains:
+        pair = {k: v for k, v in e.all_reduces.items() if k.startswith(("halo", "pair"))}
+        want = {**fwd, **{k + "_grad": v for k, v in fwd.items()}}
+        check(pair == want, f"pair-sharded run: pair collectives per train capture {pair}, "
+              f"expected {want}")
+        check(e.all_reduces["grads"] == 1 and e.all_reduces["loss"] == 2,
+              f"pair-sharded run: train capture all-reduces {e.all_reduces}")
+    check(len(trains) == train_keys and len(evals) == eval_keys
+          and all(e.all_reduces == want_eval for e in evals),
+          f"pair-sharded run: {len(trains)} train and {len(evals)} eval captures, eval "
+          f"collectives {[e.all_reduces for e in evals]}, expected {want_eval}")
+    total = collections.Counter()
+    for e in trains + evals:
+        for k, v in e.all_reduces.items():
+            total[k] += GRAPH_COUNTED_RUNS * v
+    check(reduces == dict(total), f"pair-sharded run: collectives issued {reduces}, "
+          f"expected {dict(total)}")
+    return {"world": mesh.world, "pair_size": mesh.pair.size,
+            "pair_collectives_per_train_capture": {**fwd,
+                                                   **{k + "_grad": v for k, v in fwd.items()}},
+            "collectives_per_eval_capture": want_eval, "collectives_issued": reduces,
+            "train_captures": len(trains), "eval_captures": len(evals)}
+
+
 def _same_floats(a, b) -> bool:
     """Bitwise equal sequences of floats (NaN equals NaN)."""
     return len(a) == len(b) and all(x == y or (x != x and y != y) for x, y in zip(a, b))
@@ -3707,10 +3763,13 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
     ``--deterministic`` at dropout 0.1, eager (``step_graphs=False``) and
     graphed, clean and with one batch of a run of 8 poisoned, and the
     poisoned run again data-parallel (``--num_devices 1``: NCCL at world
-    size 1, the all-reduces captured in the train graphs): per-step losses
+    size 1, the all-reduces captured in the train graphs) and pair-sharded
+    (``--shard_pair_map``: one-rank pair groups, the halos and pair
+    statistics captured in every train and eval graph): per-step losses
     and grad norms, histories, last/ states (weights, AdamW moments and
     count, batch-norm statistics) and test metrics bitwise equal, exact
-    launch and all-reduce counts; then on a state of its own: the captures'
+    launch and collective counts, and ``--num_pair_shards 2`` refused on
+    one card; then on a state of its own: the captures'
     counts and seconds, one profiled replay of each kind against an eager
     step, a full run's per-step wall graphed and eager, the host's
     blocking reads per run, peak memory; then the other configurations."""
@@ -3750,11 +3809,35 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
             argv("graphed_nan_dp"), nan_at)
         data_parallel = _check_data_parallel(seen, reduces, bn_calls, _keys(train_b))
         data_parallel["seconds"] = runs["graphed_nan_dp"][4]
+        # The pair-sharded path at P = 1: halos and pair-group statistics
+        # captured in every train and eval graph, over one-rank groups.
+        runs["graphed_nan_pair"], seen, reduces, _ = _data_parallel_run(
+            [*argv("graphed_nan_pair"), "--shard_pair_map"], nan_at)
+        pair_cfg = model_config_from_args(train_cli.parse_args(
+            [*argv("graphed_nan_pair"), "--shard_pair_map"]))
+        check(pair_cfg.shard_pair_map, "--shard_pair_map did not reach the model")
+        pair_shard = _check_pair_shard(seen, reduces, pair_cfg, _keys(train_b), _keys(eval_b))
+        pair_shard["seconds"] = runs["graphed_nan_pair"][4]
         del seen
+        # Two pair shards need two cards: refused before any process starts.
+        try:
+            train_cli.run(train_cli.parse_args([*argv("pair2"), "--num_pair_shards", "2"]))
+            refusal = None
+        except ValueError as exc:
+            refusal = str(exc)
+        check(refusal is not None and "needs 2 devices" in refusal,
+              f"--num_pair_shards 2 on one card: {refusal!r}")
+        pair_shard["refusal"] = refusal
         finals = {n: Checkpointer(CheckpointConfig(directory=os.path.join(work, n))).restore(
             None, which="last") for n in runs}
+        # P = 1 is the unsharded step bit for bit: past the map's edges the
+        # halos are zero rows, which the halo conv adds as exact zeros
+        # (models/decoder.halo_conv), and a one-rank sum is a copy.
+        pair_shard["state_diff_vs_graphed_nan"] = _tree_diff(finals["graphed_nan_pair"],
+                                                            finals["graphed_nan"])
         for a, b in (("eager", "graphed"), ("eager_nan", "graphed_nan"),
-                     ("eager_nan", "graphed_nan_dp"), ("graphed_nan", "graphed_nan_dp")):
+                     ("eager_nan", "graphed_nan_dp"), ("graphed_nan", "graphed_nan_dp"),
+                     ("graphed_nan", "graphed_nan_pair")):
             (hist_a, test_a, _, steps_a, _), (hist_b, test_b, _, steps_b, _) = runs[a], runs[b]
             diff = _tree_diff(finals[a], finals[b])
             check(diff == 0.0, f"{b}: last/ state differs from {a}'s by {diff:.3g}")
@@ -3769,16 +3852,16 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
                       f"{b}: history {key} {hist_b[0][key]} vs {a}'s {hist_a[0][key]}")
             check(all(_same_metric(test_a[k], test_b[k], 0.0) for k in test_a),
                   f"{b}: test metrics differ from {a}'s")
-        for name in ("eager_nan", "graphed_nan", "graphed_nan_dp"):
+        for name in ("eager_nan", "graphed_nan", "graphed_nan_dp", "graphed_nan_pair"):
             skipped = runs[name][0][0]["train_skipped_steps"]
             check(skipped == 1, f"{name}: {skipped} skipped steps, expected 1")
             check(not math.isfinite(runs[name][3][nan_at - 1][2]),
                   f"{name}: step {nan_at} was not the poisoned one")
-        for name in ("graphed", "graphed_nan", "graphed_nan_dp"):
+        for name in ("graphed", "graphed_nan", "graphed_nan_dp", "graphed_nan_pair"):
             _expect_graphed(name, runs[name][2], train_b, eval_b)
-        check(runs["graphed_nan_dp"][2] == runs["graphed_nan"][2],
-              f"graphed_nan_dp: launches {runs['graphed_nan_dp'][2]} vs graphed_nan's "
-              f"{runs['graphed_nan'][2]}")
+        for name in ("graphed_nan_dp", "graphed_nan_pair"):
+            check(runs[name][2] == runs["graphed_nan"][2],
+                  f"{name}: launches {runs[name][2]} vs graphed_nan's {runs['graphed_nan'][2]}")
         for name in ("eager", "eager_nan"):
             _expect_launches(name, runs[name][2], len(train_b) + len(eval_b), len(train_b))
 
@@ -3858,6 +3941,15 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
         f"eager_nan and graphed_nan; all-reduces per train capture "
         f"{data_parallel['all_reduces_per_train_capture']} ({data_parallel['train_captures']} "
         f"captures), issued {data_parallel['all_reduces_issued']}; group destroyed")
+    log(f"  pair-sharded (--shard_pair_map, P = {pair_shard['pair_size']}, one-rank NCCL "
+        f"groups): {pair_shard['seconds']:.3f} s; per train capture "
+        f"{pair_shard['pair_collectives_per_train_capture']}, per eval capture "
+        f"{pair_shard['collectives_per_eval_capture']} ({pair_shard['train_captures']} + "
+        f"{pair_shard['eval_captures']} captures), issued {pair_shard['collectives_issued']}; "
+        f"launches {runs['graphed_nan_pair'][2]} = graphed_nan's; bitwise equal to "
+        f"graphed_nan (last/ state {pair_shard['state_diff_vs_graphed_nan']!r} apart, per-step "
+        f"losses, grad norms, history, test metrics); --num_pair_shards 2 refused: "
+        f"{pair_shard['refusal']}")
     for e in inventory:
         log(f"  capture {e['kind']} {e['key'][-1]}: {e['capture_s']:.2f} s (warm-up "
             f"{e['warm_up_s']:.2f}, set-up {e['enter_s']:.2f}, body {e['body_s']:.2f}, "
@@ -3873,7 +3965,7 @@ def run_step_graphs(seed, device, smi, flags=()) -> dict:
     log(f"  phase 13: {seconds:.1f} s")
     return {"launches": {n: runs[n][2] for n in runs}, "telemetry": tele,
             "walls_s": {n: runs[n][4] for n in runs}, "poisoned_batch": nan_at,
-            "data_parallel": data_parallel,
+            "data_parallel": data_parallel, "pair_shard": pair_shard,
             "captures": inventory, "profiled_train_replay": train_prof,
             "profiled_eval_replay": eval_prof, "profiled_eager_step": eager_prof,
             "full_run_step_ms": step_ms, "full_run_bucket": bucket,

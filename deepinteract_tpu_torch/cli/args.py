@@ -64,6 +64,27 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                         "outputs and recomputes only the elementwise chain")
 
 
+def add_distributed_args(p: argparse.ArgumentParser) -> None:
+    """The (data, pair) grid of ``cli.train`` and ``cli.test``: one process
+    per device (``parallel/``)."""
+    g = p.add_argument_group("distributed")
+    g.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices (0 = one process, no group); with "
+                        "--num_pair_shards P the run has num_devices x P processes, and "
+                        "ranks 1.. are started by this process")
+    g.add_argument("--num_pair_shards", type=int, default=1,
+                   help="context-parallel shards of the pair map: each complex's map is "
+                        "split by rows over this many processes (implies --shard_pair_map)")
+    g.add_argument("--shard_pair_map", action="store_true",
+                   help="context-parallel pair-map sharding over the pair group (with "
+                        "--num_pair_shards 1: the sharded path over a group of one)")
+    g.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0's store (or file://PATH) of a multi-process "
+                        "run (the reference's --num_compute_nodes)")
+    g.add_argument("--num_processes", type=int, default=None)
+    g.add_argument("--process_id", type=int, default=None)
+
+
 def add_data_args(p: argparse.ArgumentParser) -> None:
     g = p.add_argument_group("data")
     g.add_argument("--dips_root", type=str, default=None,
@@ -521,7 +542,9 @@ def model_config_from_args(args: argparse.Namespace) -> ModelConfig:
                        interact_module_type=args.interact_module_type,
                        tile_pair_map=args.tile_pair_map,
                        interaction_stem=args.interaction_stem or "factorized",
-                       compute_dtype=args.compute_dtype or "float32")
+                       compute_dtype=args.compute_dtype or "float32",
+                       shard_pair_map=(getattr(args, "shard_pair_map", False)
+                                       or getattr(args, "num_pair_shards", 1) > 1))
 
 
 def optim_config_from_args(args: argparse.Namespace) -> OptimConfig:

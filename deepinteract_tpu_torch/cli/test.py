@@ -7,7 +7,14 @@ Port of ``deepinteract_tpu/cli/test.py`` for the port's own checkpoints
 given; without a GPU and without ``--device cpu`` it refuses.
 
     python -m deepinteract_tpu_torch.cli.test --dips_root D --ckpt_name DIR \\
-        [--csv_out PATH] [--eval_batch_size B] [--device cpu] [model flags]
+        [--csv_out PATH] [--eval_batch_size B] [--device cpu] [model flags] \\
+        [--num_devices D] [--num_pair_shards P] [--shard_pair_map]
+
+``--num_pair_shards P`` evaluates each complex's pair map split by rows
+over P processes, one per device (``cli.train``'s launcher: rank 0 here,
+the rest started as copies of this command line); ``--num_devices D``
+replicates the evaluation over D data ranks, as training's evaluation is
+replicated. Rank 0 alone writes the CSV and prints the metrics.
 
 A reference (Lightning/torch) ``.ckpt`` or ``.pt`` is refused: reading one
 needs the checkpoint importer, which the port does not have yet.
@@ -20,7 +27,8 @@ import os
 import sys
 from typing import Dict, Optional
 
-from deepinteract_tpu_torch.cli.args import (add_data_args, add_training_args, build_parser,
+from deepinteract_tpu_torch.cli.args import (add_data_args, add_distributed_args,
+                                             add_training_args, build_parser,
                                              loop_config_from_args, model_config_from_args)
 from deepinteract_tpu_torch.cli.import_checkpoint import (imported_model,
                                                           load_reference_checkpoint)
@@ -65,12 +73,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--unsafe-load", action="store_true",
                         help="allow a full (code-executing) pickle load of a reference "
                              "checkpoint the safe weights_only path rejects; trusted files only")
-    return parser.parse_args(argv)
+    add_distributed_args(parser)
+    args = parser.parse_args(argv)
+    # The command line, for the ranks --num_devices / --num_pair_shards start.
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
 
 
 def run(args: argparse.Namespace) -> Dict[str, float]:
-    """The test split's metrics under the checkpoint's best/ weights."""
-    device = resolve_device(args.device)
+    """The test split's metrics under the checkpoint's best/ weights (over
+    the run's grid, when it has one: ``cli.train.data_parallel_run``)."""
+    from deepinteract_tpu_torch.cli.train import data_parallel_run
+
+    with data_parallel_run(args, "deepinteract_tpu_torch.cli.test") as mesh:
+        return _test(args, mesh)
+
+
+def _test(args: argparse.Namespace, mesh) -> Dict[str, float]:
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.rank == 0
     ckpt_dir = args.ckpt_name or args.ckpt_dir
     if not os.path.exists(ckpt_dir):
         raise SystemExit(f"test: no checkpoint at {ckpt_dir!r}")
@@ -89,13 +110,13 @@ def run(args: argparse.Namespace) -> Dict[str, float]:
         sd, _ = load_reference_checkpoint(ref, args.unsafe_load)
         model = imported_model(sd, model_cfg,
                                log=lambda s: print(f"imported reference checkpoint {ref}: {s}"))
-    trainer = Trainer(model.to(device), loop_config_from_args(args))
+    trainer = Trainer(model.to(device), loop_config_from_args(args), mesh=mesh)
     state = trainer.init_state()
     if ref is None:
         Checkpointer(CheckpointConfig(directory=ckpt_dir, metric_to_track=args.metric_to_track)
                      ).restore(state, which="best", partial=True)
     return trainer.evaluate(state, test_loader, stage="test", targets=test_loader.targets(),
-                            csv_path=csv_path_of(args))
+                            csv_path=csv_path_of(args) if primary else None)
 
 
 def main(argv=None) -> int:
@@ -106,6 +127,8 @@ def main(argv=None) -> int:
         print(f"test: {err}", file=sys.stderr)
         return 2
     metrics = run(args)
+    if args.process_id:  # a started rank: rank 0 reports
+        return 0
     for key in sorted(metrics):
         print(f"{key}: {metrics[key]:.6f}")
     print(f"wrote {csv_path_of(args)}")

@@ -16,20 +16,25 @@ refuses.
         [--packed_cache_dir DIR] [--profile_dir DIR [--profile_steps N]] [--no_span_log] \\
         [--viz_every_n_epochs N] [--tb_log_dir DIR] [--use_wandb [--offline] ...] \\
         [--supervise [--hang_timeout_s T] ...] [--device cpu] \\
-        [--num_devices N | --coordinator_address A --num_processes W --process_id R]
+        [--num_devices N] [--num_pair_shards P] [--shard_pair_map] \\
+        [--coordinator_address A --num_processes W --process_id R]
 
-Data parallel, one process per device (``parallel/``): ``--num_devices
-N`` runs rank 0 in this process and starts ranks 1..N-1 as copies of this
-command line, one per device, meeting at a FileStore in ``--ckpt_dir``;
-``--coordinator_address host:port`` (or ``file://PATH``) with
-``--num_processes`` and ``--process_id`` joins one rank of a group started
-elsewhere. NCCL on the GPU, gloo with ``--device cpu``. Each step is the
-single-process step on the global batch of ``batch_size * W`` complexes;
-rank 0 alone writes checkpoints, logs, the test CSV and the final
-metrics line, and every rank prints ``host r/W: n coordinated global
-steps/epoch``. ``--num_devices`` above the devices there are, a topology
-that does not come up and ``--num_pair_shards`` above 1 (pair-map
-sharding, not ported yet) raise.
+Sharded, one process per device (``parallel/``): ``--num_devices D``
+(data parallel) and ``--num_pair_shards P`` (pair-map sharding: each
+complex's map split by rows over P processes) make a D x P grid; rank 0
+runs in this process and starts ranks 1..D*P-1 as copies of this command
+line, one per device, meeting at a FileStore in ``--ckpt_dir``.
+``--shard_pair_map`` with P = 1 runs the sharded path over a group of
+one. ``--coordinator_address host:port`` (or ``file://PATH``) with
+``--num_processes`` and ``--process_id`` joins one rank of a group
+started elsewhere. NCCL on the GPU, gloo with ``--device cpu``. Each step
+is the single-process step on the global batch of ``batch_size * D``
+complexes; rank 0 alone writes checkpoints, logs, the test CSV and the
+final metrics line, and with D > 1 every rank prints ``host r/D: n
+coordinated global steps/epoch``. A grid of more processes than devices
+(``needs N devices``), a topology that does not come up and a model that
+cannot be row-sharded (DeepLab; rows that P does not split into shards
+at least as wide as the decoder's halo) raise.
 
 The train loader shuffles runs of ``--steps_per_dispatch`` same-bucket
 batches (the JAX CLI's epoch order), and each full run is one dispatch of
@@ -70,8 +75,8 @@ from itertools import islice
 
 import torch
 
-from deepinteract_tpu_torch.cli.args import (add_data_args, add_logging_args,
-                                             add_training_args, build_parser,
+from deepinteract_tpu_torch.cli.args import (add_data_args, add_distributed_args,
+                                             add_logging_args, add_training_args, build_parser,
                                              loop_config_from_args, make_metric_writer,
                                              model_config_from_args, optim_config_from_args)
 from deepinteract_tpu_torch.data.datasets import PICPDataModule
@@ -97,18 +102,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="the test split's per-target top-k metrics (default: "
                              "test_top_metrics.csv in the working directory, as the "
                              "JAX CLI writes it)")
-    g = parser.add_argument_group("distributed")
-    g.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices, one process each (0 = one process, no "
-                        "group); ranks 1..N-1 are started by this process")
-    g.add_argument("--num_pair_shards", type=int, default=1,
-                   help="context-parallel shards of the pair map (only 1: pair-map "
-                        "sharding is not ported yet)")
-    g.add_argument("--coordinator_address", type=str, default=None,
-                   help="host:port of rank 0's store (or file://PATH) of a multi-process "
-                        "run (the reference's --num_compute_nodes)")
-    g.add_argument("--num_processes", type=int, default=None)
-    g.add_argument("--process_id", type=int, default=None)
+    add_distributed_args(parser)
     args = parser.parse_args(argv)
     if args.fine_tune and not args.ckpt_name:
         parser.error("--fine_tune needs --ckpt_name (the checkpoint to warm-start from)")
@@ -142,26 +136,29 @@ def is_primary(args: argparse.Namespace) -> bool:
 
 
 @contextlib.contextmanager
-def data_parallel_run(args: argparse.Namespace):
-    """The run's data axis (a ``parallel.mesh.DataMesh``, or None for one
-    process): joined from the coordinator flags, or, with ``--num_devices
-    N``, rank 0 here and ranks 1..N-1 started as copies of the command
-    line, meeting at a FileStore in ``--ckpt_dir``. On the way out every
-    rank meets at the exit barrier and the group is destroyed; the started
-    ranks are waited for, and one that failed raises. On an error other
-    than a preemption the group is destroyed without the barrier and the
-    started ranks are killed."""
-    if args.num_pair_shards > 1:
-        raise NotImplementedError(
-            f"--num_pair_shards {args.num_pair_shards}: pair-map sharding is not ported yet "
-            "(ROADMAP queue 1, item 10b)")
+def data_parallel_run(args: argparse.Namespace, module: str = "deepinteract_tpu_torch.cli.train"):
+    """The run's (data, pair) grid (a ``parallel.mesh.DataMesh``, or None
+    for one process without pair sharding): joined from the coordinator
+    flags, or, with ``--num_devices D`` and/or ``--num_pair_shards P``
+    (or ``--shard_pair_map``), rank 0 here and ranks 1..D*P-1 started as
+    copies of the command line (``python -m module``), meeting at a
+    FileStore in ``--ckpt_dir``. On the way out every rank meets at the
+    exit barrier and the group is destroyed; the started ranks are waited
+    for, and one that failed raises. On an error other than a preemption
+    the group is destroyed without the barrier and the started ranks are
+    killed."""
     device = resolve_device(args.device)
+    pairs = args.num_pair_shards
+    if pairs < 1:
+        raise ValueError(f"--num_pair_shards {pairs}: at least 1")
+    sharded = args.shard_pair_map or pairs > 1
     coordinated = any(v is not None for v in (args.coordinator_address, args.num_processes,
                                                args.process_id))
-    if args.num_devices and coordinated and args.num_devices != args.num_processes:
-        raise ValueError(f"--num_devices {args.num_devices} and --num_processes "
-                         f"{args.num_processes} disagree")
-    if not coordinated and args.num_devices <= 0:
+    n = max(args.num_devices, 1) * pairs
+    if args.num_devices and coordinated and n != args.num_processes:
+        raise ValueError(f"--num_devices {args.num_devices} x --num_pair_shards {pairs} and "
+                         f"--num_processes {args.num_processes} disagree")
+    if not coordinated and args.num_devices <= 0 and not sharded:
         yield None
         return
     children, store_path = [], None
@@ -169,17 +166,17 @@ def data_parallel_run(args: argparse.Namespace):
         multihost.initialize_distributed(args.coordinator_address, args.num_processes,
                                          args.process_id, device)
     else:
-        n = args.num_devices
         have = available_devices(device)
         if n > have:
-            raise ValueError(f"--num_devices {n}: this host has {have} {device.type} "
+            raise ValueError(f"--num_devices {max(args.num_devices, 1)} x --num_pair_shards "
+                             f"{pairs} needs {n} devices: this host has {have} {device.type} "
                              "device(s)")
         run_dir = args.ckpt_dir or "."
         os.makedirs(run_dir, exist_ok=True)
         store_path = os.path.abspath(os.path.join(
             run_dir, f".rendezvous-{os.getpid()}-{time.time_ns()}"))
         flags = ["--coordinator_address", f"file://{store_path}", "--num_processes", str(n)]
-        children = [subprocess.Popen([sys.executable, "-m", "deepinteract_tpu_torch.cli.train",
+        children = [subprocess.Popen([sys.executable, "-m", module,
                                       *args.argv, *flags, "--process_id", str(rank)])
                     for rank in range(1, n)]
         try:
@@ -188,7 +185,7 @@ def data_parallel_run(args: argparse.Namespace):
             _stop(children)
             raise
     try:
-        yield make_mesh(num_data=multihost.process_count())
+        yield make_mesh(num_pair=pairs, shard_pair_map=sharded)
     except TrainingPreempted:
         _leave(children, store_path, "preempted-exit")
         raise
@@ -224,7 +221,8 @@ def _run(args: argparse.Namespace):
 def _train(args: argparse.Namespace, mesh):
     device = resolve_device(args.device) if mesh is None else mesh.device
     primary = mesh is None or mesh.rank == 0
-    shard = (mesh.rank, mesh.world) if mesh is not None and mesh.world > 1 else None
+    shard = ((mesh.data_rank, mesh.num_data) if mesh is not None and mesh.num_data > 1
+             else None)
 
     model_cfg = model_config_from_args(args)
     dm = PICPDataModule(dips_root=args.dips_root, db5_root=args.db5_root,

@@ -8,6 +8,16 @@ statistics compute the same statistics up to float association, and its
 chunk scan serves XLA's compiler; neither is needed here (the scanned
 parameter layout is still accepted by ``weights.py``).
 
+Pair-map sharding (``ModelConfig.shard_pair_map``, ``parallel/pair.py``):
+given a :class:`~deepinteract_tpu_torch.parallel.pair.PairMesh`, the
+decoder runs on this rank's rows of the map. Instance-norm and
+squeeze-excitation statistics sum their count, sums and centred squares
+over the pair group; every dilated 3x3 conv takes a halo of ``d`` rows
+from the neighbouring ranks (no row padding of its own; columns keep
+theirs), the regional attention a halo of ``region_size // 2`` rows, and
+its dropout hashes each element's row in the whole map. The 1x1 layers
+need nothing.
+
 With ``remat`` every bottleneck block is rematerialized in the backward
 (:func:`remat_call`, the JAX package's ``nn.remat`` per block): under
 ``remat_policy='full'`` a block keeps only its input and recomputes the
@@ -98,17 +108,27 @@ def remat_call(module: nn.Module, remat_policy: str, *args):
     return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def masked_instance_norm(x, mask, weight, bias, eps: float = 1e-6):
+def masked_instance_norm(x, mask, weight, bias, eps: float = 1e-6, pair=None):
     """InstanceNorm2d over valid pixels per sample and channel.
 
     x: [B, C, H, W]; mask: [B, 1, H, W] float (1 = valid). Statistics are
     float32 (two-pass variance); the output is masked and cast back to
-    x's dtype."""
+    x's dtype. With a ``pair`` mesh x holds this rank's rows and the
+    count with the sums, then the centred squares, are summed over the
+    pair group (``pair_norm``)."""
     xf = x.to(STATS_DTYPE)
     m = mask.to(STATS_DTYPE)
-    count = torch.clamp(m.sum(dim=(2, 3), keepdim=True), min=1.0)
-    mean = (xf * m).sum(dim=(2, 3), keepdim=True) / count
-    var = ((xf - mean) ** 2 * m).sum(dim=(2, 3), keepdim=True) / count
+    if pair is None:
+        count = torch.clamp(m.sum(dim=(2, 3), keepdim=True), min=1.0)
+        mean = (xf * m).sum(dim=(2, 3), keepdim=True) / count
+        var = ((xf - mean) ** 2 * m).sum(dim=(2, 3), keepdim=True) / count
+    else:
+        sums = pair.all_reduce_autograd(
+            torch.cat([(xf * m).sum(dim=(2, 3)), m.sum(dim=(2, 3))], dim=1), "pair_norm")
+        count = torch.clamp(sums[:, -1:], min=1.0)[..., None, None]
+        mean = sums[:, :-1, None, None] / count
+        var = pair.all_reduce_autograd(((xf - mean) ** 2 * m).sum(dim=(2, 3)),
+                                       "pair_norm")[..., None, None] / count
     y = (xf - mean) * torch.rsqrt(var + eps) * weight[:, None, None] + bias[:, None, None]
     return (y * m).to(x.dtype)
 
@@ -119,8 +139,8 @@ class InstanceNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x, mask):
-        return masked_instance_norm(x, mask, self.weight, self.bias)
+    def forward(self, x, mask, pair=None):
+        return masked_instance_norm(x, mask, self.weight, self.bias, pair=pair)
 
 
 class SEBlock(nn.Module):
@@ -135,11 +155,37 @@ class SEBlock(nn.Module):
         self.squeeze = Dense(channels, max(1, channels // ratio))
         self.excite = Dense(max(1, channels // ratio), channels)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pair=None):
         m = mask.to(STATS_DTYPE)
-        pooled = (x.to(STATS_DTYPE) * m).sum(dim=(2, 3)) / torch.clamp(m.sum(dim=(2, 3)), min=1.0)
+        if pair is None:
+            pooled = ((x.to(STATS_DTYPE) * m).sum(dim=(2, 3))
+                      / torch.clamp(m.sum(dim=(2, 3)), min=1.0))
+        else:  # the masked mean over the whole map: sums over the pair group
+            sums = pair.all_reduce_autograd(torch.cat(
+                [(x.to(STATS_DTYPE) * m).sum(dim=(2, 3)), m.sum(dim=(2, 3))], dim=1), "pair_se")
+            pooled = sums[:, :-1] / torch.clamp(sums[:, -1:], min=1.0)
         h = F.relu(self.excite(F.relu(self.squeeze(pooled.to(x.dtype)))))
         return x * torch.sigmoid(h)[:, :, None, None]
+
+
+def halo_conv(conv: Conv2d, x, pair):
+    """``conv`` (3x3, dilation d, stride 1, padding d) of this rank's rows
+    with the d halo rows of its neighbours in place of the zero rows the
+    padding puts above and below: the conv of the rows as they are, plus
+    what the halo adds, which reaches only the first and the last d output
+    rows, through the kernel's first and last row (1x3 convs of the halo
+    rows, no bias). Past the map's edges the halo is zero, so with one
+    pair rank the result, and its gradients, are the unsharded conv's bit
+    for bit."""
+    d = conv.dilation[0]
+    above, below = pair.halo_rows(x, d)
+    weight = conv.weight.to(x.dtype)
+    cols = dict(padding=(0, conv.padding[1]), dilation=conv.dilation)
+    rows = x.shape[2]
+    top = F.conv2d(above, weight[:, :, :1], **cols)     # taps d rows up
+    bottom = F.conv2d(below, weight[:, :, 2:], **cols)  # taps d rows down
+    return (conv(x) + F.pad(top, (0, 0, 0, rows - d))
+            + F.pad(bottom, (0, 0, rows - d, 0)))
 
 
 class BottleneckBlock(nn.Module):
@@ -159,19 +205,20 @@ class BottleneckBlock(nn.Module):
         self.conv2d_3 = Conv2d(half, channels, 1)
         self.se_block = SEBlock(channels)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pair=None):
         residual = x
         if self.use_inorm:
-            x = self.inorm_1(x, mask)
+            x = self.inorm_1(x, mask, pair)
         x = self.conv2d_1(F.elu(x))
         if self.use_inorm:
-            x = self.inorm_2(x, mask)
+            x = self.inorm_2(x, mask, pair)
         # Zero the padded region before the only spatially-mixing conv, so
         # padded buckets match the reference's zero-boundary conv exactly.
-        x = self.conv2d_2(F.elu(x) * mask.to(x.dtype))
+        x = F.elu(x) * mask.to(x.dtype)
+        x = self.conv2d_2(x) if pair is None else halo_conv(self.conv2d_2, x, pair)
         if self.use_inorm:
-            x = self.inorm_3(x, mask)
-        x = self.se_block(self.conv2d_3(F.elu(x)), mask)
+            x = self.inorm_3(x, mask, pair)
+        x = self.se_block(self.conv2d_3(F.elu(x)), mask, pair)
         return (x + residual) * mask.to(x.dtype)
 
 
@@ -196,11 +243,12 @@ class DilatedResNet(nn.Module):
         for name, d in self.blocks:
             self.add_module(name, BottleneckBlock(channels, d, use_inorm))
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pair=None):
         x = self.init_proj(x)
         for name, _ in self.blocks:
             block = getattr(self, name)
-            x = remat_call(block, self.remat_policy, x, mask) if self.remat else block(x, mask)
+            x = (remat_call(block, self.remat_policy, x, mask, pair) if self.remat
+                 else block(x, mask, pair))
         return x
 
 
@@ -222,23 +270,36 @@ class RegionalAttention(nn.Module):
         self.v_layer = Conv2d(channels, channels, 1, bias=False)
         self.dropout = Dropout(dropout_rate)
 
-    def _patches(self, t):
-        """[B, C, H, W] -> [B, C, s*s, H, W], window offsets row-major."""
+    def _patches(self, t, pair=None):
+        """[B, C, H, W] -> [B, C, s*s, H, W], window offsets row-major; with
+        a ``pair`` mesh the rows beyond this rank's come from its
+        neighbours' halo."""
         s, pad = self.region_size, self.region_size // 2
         h, w = t.shape[2:]
-        tp = F.pad(t, (pad, pad, pad, pad))
+        if pair is None:
+            tp = F.pad(t, (pad, pad, pad, pad))
+        else:
+            tp = F.pad(pair.halo(t, pad) if pad else t, (pad, pad, 0, 0))
         return torch.stack([tp[:, :, dy:dy + h, dx:dx + w]
                             for dy in range(s) for dx in range(s)], dim=2)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, pair=None):
         b, c, h, w = x.shape
         n, s2 = self.num_heads, self.region_size ** 2
         x = x * mask.to(x.dtype)
-        qk = self._patches(self.q_layer(x)) * self._patches(self.k_layer(x))
+        if pair is None:
+            qp, kp = self._patches(self.q_layer(x)), self._patches(self.k_layer(x))
+            vp = self._patches(self.v_layer(x))
+        else:  # one halo exchange for q, k and v
+            qp, kp, vp = self._patches(torch.cat(
+                [self.q_layer(x), self.k_layer(x), self.v_layer(x)], dim=1), pair).split(
+                    [self.d_k, self.d_k, c], dim=1)
+        qk = qp * kp
         qk = qk.reshape(b, n, self.d_k // n, s2, h, w).sum(2)  # [B, heads, s2, H, W]
         att = torch.softmax(qk.to(STATS_DTYPE) / self.d_k ** 0.5, dim=2).to(qk.dtype)
-        att = self.dropout(att)
-        v = self._patches(self.v_layer(x)).reshape(b, n, c // n, s2, h, w)
+        att = (self.dropout(att) if pair is None
+               else self.dropout(att, rows=(3, pair.index * h, pair.size * h)))
+        v = vp.reshape(b, n, c // n, s2, h, w)
         out = (att[:, :, None] * v).sum(3).reshape(b, c, h, w)
         return out * mask.to(out.dtype)
 
@@ -250,7 +311,8 @@ class InteractionDecoder(nn.Module):
     ``pair_input`` is a :class:`~deepinteract_tpu_torch.models.stem.
     PairFactors` bundle or the materialized ``[B, L1, L2, 2C]`` tensor;
     ``mask`` the ``[B, L1, L2]`` pair mask. Returns float32 logits
-    ``[B, L1, L2, num_classes]``, zero at padded pairs."""
+    ``[B, L1, L2, num_classes]``, zero at padded pairs. With a ``pair``
+    mesh every input holds this rank's rows and so do the logits."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
@@ -270,16 +332,22 @@ class InteractionDecoder(nn.Module):
                     dropout_rate=cfg.dropout_rate))
         self.phase2_conv = nn.Conv2d(ch, cfg.num_classes, 1)
 
-    def forward(self, pair_input, mask):
+    def halo_rows(self) -> int:
+        """The widest halo a pair-sharded decode exchanges: the largest
+        dilation, or the attention window's half-width."""
+        cfg = self.cfg
+        return max(*cfg.dilation_cycle, cfg.region_size // 2 if cfg.use_attention else 0)
+
+    def forward(self, pair_input, mask, pair=None):
         m = mask[:, None].to(self.cfg.dtype)  # [B, 1, L1, L2]
         x = self.conv2d_1(pair_input).to(self.cfg.dtype)
-        x = F.elu(self.inorm_1(x, m))
-        x = F.elu(self.base_resnet(x, m))
+        x = F.elu(self.inorm_1(x, m, pair))
+        x = F.elu(self.base_resnet(x, m, pair))
         if self.cfg.use_attention:
-            x = F.elu(self.mha2d_1(x, m))
-        x = F.elu(self.phase2_resnet(x, m))
+            x = F.elu(self.mha2d_1(x, m, pair))
+        x = F.elu(self.phase2_resnet(x, m, pair))
         if self.cfg.use_attention:
-            x = F.elu(self.mha2d_2(x, m))
+            x = F.elu(self.mha2d_2(x, m, pair))
         # Logits in float32 whatever the activation dtype.
         logits = self.phase2_conv(x.to(OUTPUT_DTYPE)) * m.to(OUTPUT_DTYPE)
         return logits.permute(0, 2, 3, 1)

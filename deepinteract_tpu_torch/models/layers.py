@@ -181,10 +181,14 @@ class DropoutKey:
     after a skip (a skipped step leaves ``step`` where it was, as the JAX
     package's ``fold_in(dropout_rng, state.step)`` does).
 
-    ``shard`` is the rank of a data-parallel step: every masked tensor has
-    the batch as its leading axis, so rank r's elements sit at offset
-    ``r * numel`` of the global batch's, and its masks are the
-    single-process step's masks of its slice of the global batch."""
+    ``shard`` is the data index of a data-parallel step: every masked
+    tensor has the batch as its leading axis, so rank r's elements sit at
+    offset ``r * numel`` of the global batch's, and its masks are the
+    single-process step's masks of its slice of the global batch. A
+    pair-sharded tensor holds a run of rows of the whole map (``rows``
+    of :meth:`keep`), and its elements hash their index in the whole
+    map's tensor, so every rank draws the single-process masks of its
+    rows."""
 
     def __init__(self, seed: torch.Tensor, step: torch.Tensor, stream: int = 0,
                  shard: int = 0):
@@ -211,15 +215,32 @@ class DropoutKey:
             self._multipliers = (_mix32(mods ^ base) & 0x7FFFFFFF) | 1
         return self._multipliers[index]
 
-    def keep(self, index: int, shape, keep_prob: float, device) -> torch.Tensor:
+    def keep(self, index: int, shape, keep_prob: float, device, rows=None) -> torch.Tensor:
         """The keep mask (uniform < keep_prob) of module ``index`` for a
-        tensor of ``shape``: bool, on ``device``."""
-        numel = math.prod(shape)
+        tensor of ``shape``: bool, on ``device``. ``rows`` = (axis, start,
+        total): the tensor holds rows ``start ..`` of a ``total``-row axis
+        (the whole map's rows of a pair-sharded tensor)."""
+        whole = list(shape)
+        if rows is not None:
+            whole[rows[0]] = rows[2]
+        numel = math.prod(whole)
         if numel * (self.shard + 1) >= 2 ** 32:
             raise ValueError(f"dropout over {numel * (self.shard + 1)} elements of the global "
                              "batch: the hash counts below 2**32")
         start = self.shard * numel + 1
-        idx = torch.arange(start, start + numel, dtype=torch.int64, device=device)
+        if rows is None:
+            idx = torch.arange(start, start + numel, dtype=torch.int64, device=device)
+        else:
+            # The elements' flat indices in the whole tensor, by strides.
+            idx = torch.full((), start, dtype=torch.int64, device=device)
+            stride = 1
+            for axis in reversed(range(len(shape))):
+                offset = rows[1] if axis == rows[0] else 0
+                ar = torch.arange(offset, offset + shape[axis], dtype=torch.int64,
+                                  device=device) * stride
+                idx = idx + ar.reshape([-1] + [1] * (len(shape) - 1 - axis))
+                stride *= whole[axis]
+            idx = idx.reshape(-1)
         h = _mix32((idx * self.multiplier(index)) & _M32)
         return (h < int(keep_prob * 2 ** 32)).reshape(shape)
 
@@ -238,14 +259,16 @@ class Dropout(nn.Module):
         self.key: Optional[DropoutKey] = None
         self.index = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows=None) -> torch.Tensor:
+        """``rows``: (axis, start, total) of a pair-sharded ``x``
+        (:meth:`DropoutKey.keep`)."""
         if not self.training or self.p == 0.0:
             return x
         if self.key is None:
             raise RuntimeError("train-mode dropout draws from an explicit key: "
                                "run the forward under layers.dropout_rng(model, key)")
         keep_prob = 1.0 - self.p
-        keep = self.key.keep(self.index, x.shape, keep_prob, x.device)
+        keep = self.key.keep(self.index, x.shape, keep_prob, x.device, rows)
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

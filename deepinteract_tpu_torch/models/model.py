@@ -7,12 +7,20 @@ Transformer ('geotran') or a plain GCN ('gcn'); the decoder the dilated
 SE-ResNet ('dilated') or DeepLabV3+ ('deeplab'), decoded whole or, with
 ``tile_pair_map``, in tiles (``models/tiled.py``). Both chains share one
 set of encoder weights.
+
+With ``shard_pair_map`` (context parallelism; the JAX package's field of
+the same name) the dilated decoder runs on this rank's rows of the pair
+map over the pair group of the active ``parallel.pair.pair_sharded``
+block, untiled or inside each tile, and ``forward`` returns those rows
+(:meth:`DeepInteract.pair_row_slices`). The encoder is replicated over
+the pair group: every rank encodes both chains. A configuration that
+cannot be sharded raises; it never runs unsharded in its place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -24,10 +32,11 @@ from deepinteract_tpu_torch.models.geometric_transformer import GeometricTransfo
 from deepinteract_tpu_torch.models.interaction import interaction_tensor, pair_mask
 from deepinteract_tpu_torch.models.layers import GODense
 from deepinteract_tpu_torch.models.policy import validate_compute_dtype
-from deepinteract_tpu_torch.models.stem import PairFactors, validate_stem
+from deepinteract_tpu_torch.models.stem import PairFactors, shard_pair_rows, validate_stem
 from deepinteract_tpu_torch.models.tiled import tiled_decode
 from deepinteract_tpu_torch.models.vision import DeepLabConfig, DeepLabDecoder
 from deepinteract_tpu_torch.ops.cuda_attention import in_edge_csr
+from deepinteract_tpu_torch.parallel.pair import active_pair, row_slices
 
 GNN_LAYER_TYPES = ("geotran", "gcn")
 INTERACT_MODULE_TYPES = ("dilated", "deeplab")
@@ -43,6 +52,9 @@ class ModelConfig:
     gnn_layer_type: str = "geotran"  # 'geotran' | 'gcn'
     interact_module_type: str = "dilated"  # 'dilated' | 'deeplab'
     num_classes: int = C.NUM_CLASSES
+    # Context parallelism: decode this rank's rows of the L1 x L2 map over
+    # the pair group (parallel/pair.py; needs a pair mesh at decode time).
+    shard_pair_map: bool = False
     # Decode the pair map in tile_size x tile_size blocks when a padded
     # chain exceeds one tile (models/tiled.py).
     tile_pair_map: bool = False
@@ -64,6 +76,10 @@ class ModelConfig:
         if self.interact_module_type not in INTERACT_MODULE_TYPES:
             raise ValueError(f"unknown interact_module_type {self.interact_module_type!r}; "
                              f"expected one of {INTERACT_MODULE_TYPES}")
+        if self.shard_pair_map and self.interact_module_type == "deeplab":
+            raise ValueError("pair-map sharding of the DeepLab decoder is not ported "
+                             "(ROADMAP item 10c, then DeepLab's pair sharding): use the "
+                             "dilated decoder or drop shard_pair_map")
         if self.compute_dtype is not None:
             validate_compute_dtype(self.compute_dtype)
             for name in ("gnn", "decoder", "deeplab"):
@@ -170,21 +186,47 @@ class DeepInteract(nn.Module):
             x = self.node_in_embedding(x)
         return self.gnn(graph, x)
 
+    def _tiled(self, l1: int, l2: int) -> bool:
+        return self.cfg.tile_pair_map and max(l1, l2) > self.cfg.tile_size
+
+    def pair_row_slices(self, l1: int, l2: int, pair) -> List[slice]:
+        """The rows of an ``l1 x l2`` map that a ``shard_pair_map`` decode
+        returns on this rank of ``pair``: one run per tile row when tiled,
+        one run untiled. Raises when the rows do not split into shards at
+        least as wide as the decoder's halo."""
+        blocks = l1 // self.cfg.tile_size if self._tiled(l1, l2) else 1
+        return row_slices(l1, pair, blocks, self.decoder.halo_rows())
+
+    def _pair(self):
+        pair = active_pair()
+        if pair is None:
+            raise RuntimeError(
+                "shard_pair_map decodes over a pair group: run it inside "
+                "parallel.pair.pair_sharded(mesh.pair), as cli.train and cli.test do "
+                "(serving's mesh placement is ROADMAP item 10c)")
+        return pair
+
     def decode(self, feats1, feats2, mask1, mask2):
         """Interaction stem + decoder over encoded chain features
         ``[B, L, C]`` and node masks ``[B, L]``; tiled when
-        ``tile_pair_map`` is set and a chain exceeds ``tile_size``.
+        ``tile_pair_map`` is set and a chain exceeds ``tile_size``;
+        this rank's rows (:meth:`pair_row_slices`) with ``shard_pair_map``.
         ``forward`` is exactly ``decode(encode(g1), encode(g2))``."""
         cfg = self.cfg
         dt = cfg.gnn.dtype
         feats1, feats2 = feats1.to(dt), feats2.to(dt)
-        if cfg.tile_pair_map and max(feats1.shape[1], feats2.shape[1]) > cfg.tile_size:
+        pair = self._pair() if cfg.shard_pair_map else None
+        if self._tiled(feats1.shape[1], feats2.shape[1]):
             return tiled_decode(self.decoder, feats1, feats2, mask1, mask2, cfg.tile_size,
-                                cfg.interaction_stem)
+                                cfg.interaction_stem, pair=pair)
+        if pair is not None:
+            rows = self.pair_row_slices(feats1.shape[1], feats2.shape[1], pair)
+            feats1, mask1 = shard_pair_rows(feats1, rows), shard_pair_rows(mask1, rows)
         pm = pair_mask(mask1, mask2)
-        if cfg.interaction_stem == "factorized":
-            return self.decoder(PairFactors(feats1, feats2, mask1, mask2), pm)
-        return self.decoder(interaction_tensor(feats1, feats2), pm)
+        stem_input = (PairFactors(feats1, feats2, mask1, mask2)
+                      if cfg.interaction_stem == "factorized"
+                      else interaction_tensor(feats1, feats2))
+        return self.decoder(stem_input, pm) if pair is None else self.decoder(stem_input, pm, pair)
 
     def forward(self, graph1: ProteinGraph, graph2: ProteinGraph,
                 return_representations: bool = False):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepinteract_tpu_torch.models.layers import Conv2d, Dense
+from deepinteract_tpu_torch.parallel.pair import take_rows
 
 STEM_CHOICES = ("factorized", "materialized")
 
@@ -49,6 +50,18 @@ class PairFactors:
     feats2: torch.Tensor
     mask1: Optional[torch.Tensor] = None
     mask2: Optional[torch.Tensor] = None
+
+
+def shard_pair_rows(x: torch.Tensor, slices) -> torch.Tensor:
+    """This rank's rows (``parallel.pair.row_slices``) of a ``[B, L1, ...]``
+    pair-map tensor, pair mask or chain-1 feature tensor: the port of the
+    JAX ``shard_pair_rows`` annotation, which XLA honours by keeping only
+    a device's rows. Under pair-map sharding the stems see only these rows
+    of ``feats1`` (and all of ``feats2``), so the factorized stem computes
+    the rank's rows of its output and the materialized one builds only the
+    rank's rows of the interaction tensor: the ``[B, L1, L2, 2C]`` tensor
+    is never whole on a rank."""
+    return take_rows(x, slices)
 
 
 class PairStem1x1(nn.Module):

@@ -1,3 +1,4 @@
-"""Data-parallel training over torch.distributed: the process group and
-host agreement (``multihost``), the data axis and its counted all-reduces
-(``mesh``), and the data-parallel steps (``train``)."""
+"""Sharded training over torch.distributed: the process group and host
+agreement (``multihost``), the (data, pair) grid and its counted
+all-reduces (``mesh``), the pair axis's halo exchanges and statistics
+(``pair``), and the sharded steps (``train``)."""

@@ -1229,6 +1229,7 @@ class FleetRouter:
         candidate = shadow["candidate"]
         entry: Dict[str, Any] = {"ts": round(time.time(), 3),
                                  "path": path, "candidate": candidate}
+        agreed: Optional[bool] = None
         try:
             sequence = self._pick_sequence(None, version=candidate)
             if not sequence:
@@ -1251,20 +1252,23 @@ class FleetRouter:
                     if diff is not None:
                         entry["max_abs_diff"] = diff
                     _SHADOW.inc(outcome=entry["outcome"])
-                    with self._lock:
-                        self._shadow_samples += 1
-                        self._shadow_agree += int(agreed)
         except Exception as exc:  # noqa: BLE001 - shadow is best-effort
             entry.update(outcome="error", error=str(exc))
             _SHADOW.inc(outcome="error")
-        self._append_ledger(shadow["ledger_path"], entry)
+            agreed = None
+        self._append_ledger(shadow["ledger_path"], entry, agreed)
 
-    def _append_ledger(self, path: str, entry: Dict[str, Any]) -> None:
+    def _append_ledger(self, path: str, entry: Dict[str, Any],
+                       agreed: Optional[bool] = None) -> None:
         """Append to the in-memory ledger and rewrite the WHOLE JSONL
         atomically (artifact + integrity sidecar): a reader — the
         promotion rule, an operator's tail — sees a complete, verifiable
         ledger or the previous one, never a torn line. Rewrites are
-        serialized in append order, so the newest ledger lands last."""
+        serialized in append order, so the newest ledger lands last.
+        A compared sample (``agreed`` not None) is counted only after its
+        rewrite, so a reader that sees n samples finds a ledger on disk
+        with at least n entries (counting before the write let a reader
+        see the count and then an older, shorter ledger)."""
         with self._ledger_lock:
             with self._lock:
                 self._shadow_ledger.append(entry)
@@ -1277,6 +1281,10 @@ class FleetRouter:
                     extra={"entries": entries})
             except OSError as exc:
                 logger.warning("shadow: ledger write failed: %s", exc)
+            if agreed is not None:
+                with self._lock:
+                    self._shadow_samples += 1
+                    self._shadow_agree += int(agreed)
 
     # -- observability -----------------------------------------------------
 

@@ -103,6 +103,7 @@ from deepinteract_tpu_torch.obs import spans as obs_spans
 from deepinteract_tpu_torch.obs.heartbeat import Heartbeat
 from deepinteract_tpu_torch.parallel import multihost
 from deepinteract_tpu_torch.parallel.mesh import DataMesh, data_parallel
+from deepinteract_tpu_torch.parallel.pair import pair_sharded
 from deepinteract_tpu_torch.robustness import artifacts, faults
 from deepinteract_tpu_torch.robustness.guards import (NonFiniteTrainingError,
                                                       dump_diagnostics, summarize_batch)
@@ -471,7 +472,7 @@ class Trainer:
             groups = [[b] for b in run] if len(run) < max(k, 2) else [run]
             for group in groups:
                 outs = multi_eval_step(state, [b.to(device) for b in group],
-                                       self.cfg.weight_classes, graphs)
+                                       self.cfg.weight_classes, graphs, self.mesh)
                 # [K, 2, B, L1, L2, 2]: the group's probabilities and logits
                 # in one copy.
                 host = torch.stack([outs["probs"], outs["logits"]], dim=1).float().cpu().numpy()
@@ -948,8 +949,11 @@ class Trainer:
             with obs_spans.span("eval", epoch=epoch):
                 metrics.update(self.evaluate(state, val_data, stage="val"))
             metrics["val_eval_seconds"] = time.perf_counter() - t_train
+            # Under a pair axis every rank takes part in the eval step the
+            # images come from; rank 0 alone writes them.
             if (cfg.viz_every_n_epochs and (epoch + 1) % cfg.viz_every_n_epochs == 0
-                    and self.metric_writer is not None):
+                    and (self.metric_writer is not None
+                         or (self.mesh is not None and self.mesh.pair is not None))):
                 self._log_viz_images(state, val_data, epoch)
         metrics["epoch_seconds"] = time.perf_counter() - t0
         history.append(metrics)
@@ -1101,8 +1105,10 @@ class Trainer:
         model = state.model
         device = next(model.parameters()).device
         model.train()
-        key = DropoutKey(state.seed_t, state.step_t, shard=self.rank)
-        with dropout_rng(model, key), data_parallel(self.mesh):
+        key = DropoutKey(state.seed_t, state.step_t,
+                         shard=0 if self.mesh is None else self.mesh.data_rank)
+        pair = None if self.mesh is None else self.mesh.pair
+        with dropout_rng(model, key), data_parallel(self.mesh), pair_sharded(pair):
             for batch in _iter_data(data, 0):
                 batch = batch.to(device)
                 model(batch.graph1, batch.graph2)
@@ -1115,7 +1121,9 @@ class Trainer:
         batch = next(iter(_iter_data(val_data, 0)), None)
         if batch is None:
             return
-        probs = eval_step(state, batch, self.cfg.weight_classes)["probs"][0, ..., -1]
+        probs = eval_step(state, batch, self.cfg.weight_classes, self.mesh)["probs"][0, ..., -1]
+        if self.metric_writer is None:
+            return
         n1, n2 = int(batch.graph1.num_nodes[0]), int(batch.graph2.num_nodes[0])
         pred = (probs.float().cpu().numpy()[:n1, :n2, None] * 255).astype(np.uint8)
         true = (batch.contact_map[0, :n1, :n2, None].numpy() * 255).astype(np.uint8)

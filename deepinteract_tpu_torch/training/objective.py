@@ -19,32 +19,38 @@ DEFAULT_CLASS_WEIGHTS = (1.0, 5.0)
 
 
 def _weighted_ce(logits, labels, mask, weight_classes: bool, class_weights,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, site: str = "loss") -> torch.Tensor:
     """-sum(w * log p[label]) / max(sum(w), 1) with w = mask (times the
     label's class weight): torch ``CrossEntropyLoss``'s (weighted) mean.
     With a data-parallel ``mesh`` the denominator is the weight sum of the
     global batch (all-reduced, no gradient): the ranks' terms then add up
     to the global batch's loss, as a mean of per-rank means would not
-    where ranks hold different numbers of valid pairs."""
+    where ranks hold different numbers of valid pairs. Any ``mesh`` with
+    ``all_reduce(tensor, site)`` will do: the world of a sharded train step
+    (data x pair), or the pair group of a sharded eval step."""
     ll = torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None].long())[..., 0]
     w = mask.to(logits.dtype)
     if weight_classes:
         # A select, not an index into a tensor built from the tuple: that
         # would copy from the host inside a captured step.
         w = torch.where(labels.long() == 1, class_weights[1], class_weights[0]).to(w.dtype) * w
-    total = w.sum() if mesh is None else mesh.all_reduce(w.sum(), "loss")
+    total = w.sum() if mesh is None else mesh.all_reduce(w.sum(), site)
     return -(w * ll).sum() / torch.clamp(total, min=1.0)
 
 
 def contact_loss(logits: torch.Tensor, contact_map: torch.Tensor, pair_mask: torch.Tensor,
                  weight_classes: bool = False,
                  class_weights: Tuple[float, float] = DEFAULT_CLASS_WEIGHTS,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, site: str = "loss") -> torch.Tensor:
     """Masked mean cross entropy over the dense pair map. logits
     [B, L1, L2, 2]; contact_map [B, L1, L2] int; pair_mask [B, L1, L2].
-    With a data-parallel ``mesh`` (``parallel.mesh.DataMesh``): this
-    rank's term of the global batch's loss, ``S_r / max(sum_r W_r, 1)``."""
-    return _weighted_ce(logits, contact_map, pair_mask, weight_classes, class_weights, mesh)
+    With a ``mesh`` (``parallel.mesh.DataMesh``, or a ``parallel.pair.
+    PairMesh``): this rank's term of the global batch's loss,
+    ``S_r / max(sum_r W_r, 1)``, each rank holding its complexes and, under
+    pair-map sharding, its rows of their maps; the weight sum is counted
+    at ``site``."""
+    return _weighted_ce(logits, contact_map, pair_mask, weight_classes, class_weights, mesh,
+                        site)
 
 
 def example_gather_loss(logits: torch.Tensor, examples: torch.Tensor,

@@ -38,15 +38,19 @@ What a capture bakes in, and why it stays valid:
   in Python, so they move at a capture (and in its warm-up runs) and not
   at a replay: an entry records its capture's counts, ``replays`` its
   replays. So does ``parallel.mesh.ALL_REDUCES``: ``all_reduces`` is what
-  a data-parallel capture baked in, by site.
+  a sharded capture baked in, by site.
 * **collectives**: with a mesh (``parallel/train.py``) a train capture
   holds the step's all-reduces (loss, batch norms and their backward, the
-  flat gradient), NCCL on the card, captured like any kernel; the
-  communicator exists before the first capture
-  (``multihost.initialize_distributed``) and the warm-up runs them
-  eagerly. Every rank plans the same global batches, so every rank
-  captures the same key at the same step: a capture is a collective too.
-  A collective that cannot be captured fails the capture, which raises.
+  flat gradient), NCCL on the card, captured like any kernel; with a pair
+  axis the train and eval captures also hold the pair group's halo
+  exchanges (P2P), statistics all-reduces and the eval's loss sums and
+  row gather. Every communicator (the data, data-group and pair-group
+  ones, and the pair group's P2P connections) exists before the first
+  capture (``multihost.initialize_distributed``, ``parallel.mesh.
+  make_mesh``) and the warm-up runs them eagerly. Every rank plans the
+  same global batches, so every rank captures the same key at the same
+  step: a capture is a collective too. A collective that cannot be
+  captured fails the capture, which raises.
 
 A capture that fails raises with the key; the key is never run eagerly
 instead. On the CPU nothing is captured: the loop runs the bodies eagerly.
@@ -184,7 +188,8 @@ class StepGraphs:
     """The step graphs of one :class:`TrainState` on the card: a train and
     an eval entry per key, captured at the key's first step, sharing one
     memory pool. With ``mesh`` the train steps are data-parallel and hold
-    their collectives; the eval steps stay replicated."""
+    their collectives; the eval steps stay replicated over the data axis
+    and, with a pair axis, hold the pair group's collectives."""
 
     def __init__(self, state: TrainState, weight_classes: bool = False, guard: bool = False,
                  mesh: Optional[DataMesh] = None):
@@ -217,7 +222,7 @@ class StepGraphs:
         if entry is None:
             entry = self.eval_entries[key] = EvalEntry(
                 self.state, batch, self.pool,
-                lambda b: eval_step_body(self.state, b, self.weight_classes))
+                lambda b: eval_step_body(self.state, b, self.weight_classes, self.mesh))
         return entry.replay(batch)
 
     def entries(self) -> List[_Entry]:

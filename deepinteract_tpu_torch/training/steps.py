@@ -33,6 +33,7 @@ from deepinteract_tpu_torch.data.pipeline import is_placed
 from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.parallel.mesh import DataMesh, data_parallel
+from deepinteract_tpu_torch.parallel.pair import pair_sharded, take_rows
 from deepinteract_tpu_torch.robustness.guards import apply_guarded_update
 from deepinteract_tpu_torch.training.objective import contact_loss
 from deepinteract_tpu_torch.training.optim import OptimConfig, Optimizer
@@ -113,6 +114,28 @@ def create_train_state(model: DeepInteract, seed: int = 42,
                       seed)
 
 
+def _pair_of(model: DeepInteract, mesh: Optional[DataMesh]):
+    """The pair mesh a step decodes over: ``mesh.pair`` for a model with
+    ``shard_pair_map`` (None without a mesh: the model then raises).
+    A mesh with a pair axis and a model without it would count every pair
+    rank's whole map once each in the world's sums: refused."""
+    pair = None if mesh is None else mesh.pair
+    if pair is not None and not model.cfg.shard_pair_map:
+        raise ValueError("a mesh with a pair axis needs a model with shard_pair_map")
+    return pair
+
+
+def _label_rows(model: DeepInteract, batch: PairedComplex, pair):
+    """(contact map, pair mask) rows of ``batch`` that the model's logits
+    hold: this rank's rows under pair-map sharding, else all; and the
+    number of row blocks they come in."""
+    cm, pm = batch.contact_map, batch.pair_mask
+    if pair is None:
+        return cm, pm, 1
+    rows = model.pair_row_slices(cm.shape[1], cm.shape[2], pair)
+    return take_rows(cm, rows), take_rows(pm, rows), len(rows)
+
+
 def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
                     guard: bool = False, mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """One optimization step on ``batch`` (on the model's device), with no
@@ -130,7 +153,16 @@ def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: boo
     the loss over the global weight sum, batch statistics over the global
     batch, dropout masks of the rank's slice, and the flat gradient summed
     over the ranks before the norm; the loss reported is the global one.
-    So every rank takes the same guard decision and the same update."""
+    So every rank takes the same guard decision and the same update.
+
+    With a pair axis (``mesh.pair``, a model with ``shard_pair_map``) each
+    rank of a pair group holds the same complexes and decodes its rows of
+    their maps: the loss is its rows' term, the weight sum, the reported
+    loss and the flat gradient are summed over data x pair, the encoder's
+    batch norms over the data group, and the decoder's statistics and
+    halos ride the pair group (``parallel/pair.py``); the dropout masks
+    are those of the data index (the encoder's, equal on every pair rank)
+    and of the whole map's rows (the decoder's)."""
     model, opt = state.model, state.optimizer
     model.train()
     opt.zero_grad()
@@ -139,11 +171,12 @@ def train_step_body(state: TrainState, batch: PairedComplex, weight_classes: boo
         with torch.no_grad():
             for dst, src in zip(backup, buffers):
                 dst.copy_(src)
-    key = DropoutKey(state.seed_t, state.step_t, shard=0 if mesh is None else mesh.rank)
-    with dropout_rng(model, key), data_parallel(mesh):
+    key = DropoutKey(state.seed_t, state.step_t, shard=0 if mesh is None else mesh.data_rank)
+    pair = _pair_of(model, mesh)
+    with dropout_rng(model, key), data_parallel(mesh), pair_sharded(pair):
         logits = model(batch.graph1, batch.graph2)
-        loss = contact_loss(logits, batch.contact_map, batch.pair_mask, weight_classes,
-                            mesh=mesh)
+        contact_map, mask, _ = _label_rows(model, batch, pair)
+        loss = contact_loss(logits, contact_map, mask, weight_classes, mesh=mesh)
         loss.backward()
     loss = loss.detach().float()
     if mesh is not None:
@@ -201,34 +234,46 @@ def multi_train_step(state: TrainState, batches: Sequence[PairedComplex],
     return _metrics(out, guard)
 
 
-def eval_step_body(state: TrainState, batch: PairedComplex,
-                   weight_classes: bool = False) -> Dict[str, torch.Tensor]:
+def eval_step_body(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
+                   mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """Eval-mode forward, loss, per-pair probabilities and logits of a
-    batch on the model's device; no update, no host read."""
+    batch on the model's device; no update, no host read. Evaluation is
+    replicated over the data axis (no data collective); with a pair axis
+    each rank decodes its rows, the loss's sums ride the pair group
+    (``pair_loss``) and the logits are gathered whole (``pair_gather``),
+    so the outputs are the whole maps' on every rank."""
     model = state.model
     model.eval()
-    with torch.no_grad():
+    pair = _pair_of(model, mesh)
+    with torch.no_grad(), pair_sharded(pair):
         logits = model(batch.graph1, batch.graph2)
-        loss = contact_loss(logits, batch.contact_map, batch.pair_mask, weight_classes)
+        contact_map, mask, blocks = _label_rows(model, batch, pair)
+        loss = contact_loss(logits, contact_map, mask, weight_classes, mesh=pair,
+                            site="pair_loss")
+        if pair is not None:
+            loss = pair.all_reduce(loss, "pair_loss")
+            logits = pair.gather_rows(logits, blocks)
         return {"loss": loss, "probs": torch.softmax(logits, dim=-1), "logits": logits}
 
 
-def eval_step(state: TrainState, batch: PairedComplex,
-              weight_classes: bool = False) -> Dict[str, torch.Tensor]:
+def eval_step(state: TrainState, batch: PairedComplex, weight_classes: bool = False,
+              mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """Eval-mode forward, loss and per-pair probabilities; no update."""
-    return eval_step_body(state, batch.to(_device(state.model)), weight_classes)
+    return eval_step_body(state, batch.to(_device(state.model)), weight_classes, mesh)
 
 
 def multi_eval_step(state: TrainState, batches: Sequence[PairedComplex],
-                    weight_classes: bool = False, graphs=None) -> Dict[str, torch.Tensor]:
+                    weight_classes: bool = False, graphs=None,
+                    mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """K eval steps over same-shape batches (placed on the model's
     device), the JAX ``multi_eval_step``: ``loss`` [K], ``probs`` and
     ``logits`` [K, B, L1, L2, 2], on the device. With ``graphs`` each
-    batch replays its key's eval graph, else the body runs eagerly."""
+    batch replays its key's eval graph, else the body runs eagerly
+    (pair-sharded with a ``mesh`` that has a pair axis)."""
     out: Dict[str, torch.Tensor] = {}
     for j, batch in enumerate(batches):
         step = (graphs.eval(batch) if graphs is not None
-                else eval_step_body(state, batch, weight_classes))
+                else eval_step_body(state, batch, weight_classes, mesh))
         for name, value in step.items():
             if name not in out:
                 out[name] = torch.empty((len(batches), *value.shape), dtype=value.dtype,

@@ -57,6 +57,11 @@ def make_policy_autoscaler(tmp_path, monkeypatch, signals, **cfg_kw):
     return scaler, actions, signals
 
 
+# The bound of a wait on an event under the full suite's parallel load
+# (six workers compiling JAX beside these fleets slowed a stub worker's
+# start, a mirror's ledger rewrite and a process exit past 10 s).
+LOADED_WAIT_S = 60.0
+
 IDLE = {"workers": 2.0, "mean_inflight": 0.0, "degraded_workers": 0.0,
         "p99_ms": 0.0, "shed_degraded": 0.0, "pressure_delta": 0.0}
 BUSY = {"workers": 2.0, "mean_inflight": 5.0, "degraded_workers": 0.0,
@@ -417,7 +422,8 @@ def arm_shadow(host, port, candidate="v2", min_samples=4,
     return json.loads(body.decode())
 
 
-def wait_shadow_samples(host, port, n, timeout=20.0):
+def wait_shadow_samples(host, port, n, timeout=None):
+    timeout = LOADED_WAIT_S if timeout is None else timeout
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         _, body = get(host, port, "/admin/versions")
@@ -480,18 +486,22 @@ def test_shadow_ledger_and_promotion_e2e(tmp_path):
         # appending when the ledger's integrity is checked.
         record = wait_shadow_samples(host, port, 6)
         assert record["shadow_agreement"] == 1.0
-        # Ledger: a verifiable artifact of well-formed JSONL lines.
-        deadline = time.monotonic() + 10.0
+        # Ledger: a verifiable artifact of well-formed JSONL lines. A
+        # sample is counted once its rewrite landed, so the six counted
+        # above are on disk; wait for the verified ledger that holds them
+        # (a rewrite in flight fails verification for a moment).
+        deadline = time.monotonic() + LOADED_WAIT_S
         while True:
             try:
                 artifacts.verify_file(ledger, kind="agreement_ledger")
-                break
-            except artifacts.ArtifactError:
+                entries = [json.loads(line) for line in
+                           open(ledger).read().splitlines() if line]
+                if len(entries) >= 6 or time.monotonic() > deadline:
+                    break
+            except (artifacts.ArtifactError, FileNotFoundError):
                 if time.monotonic() > deadline:
                     raise
-                time.sleep(0.1)
-        entries = [json.loads(line) for line in
-                   open(ledger).read().splitlines() if line]
+            time.sleep(0.1)
         assert len(entries) >= 6
         assert all(e["candidate"] == "v2" for e in entries)
         assert all(e["outcome"] == "agree" for e in entries)
@@ -558,7 +568,7 @@ def test_kill9_supervisor_mid_scale_event_recovers(tmp_path):
     sup_a = make_supervisor(tmp_path, n=2)
     sup_a.start()
     try:
-        wait_routable(sup_a, 2)
+        wait_routable(sup_a, 2, timeout=LOADED_WAIT_S)
         sup_a.set_extra_state("autoscale", {"target_workers": 3,
                                             "scale_ups": 1,
                                             "scale_downs": 0,
@@ -568,7 +578,8 @@ def test_kill9_supervisor_mid_scale_event_recovers(tmp_path):
         # no retirement — workers keep running as orphans.
         sup_a._stop.set()
         if sup_a._monitor is not None:
-            sup_a._monitor.join(timeout=10.0)
+            sup_a._monitor.join(timeout=LOADED_WAIT_S)
+            assert not sup_a._monitor.is_alive()
 
         sup_b = make_supervisor(tmp_path, n=2)
         router_b = FleetRouter(
@@ -588,17 +599,17 @@ def test_kill9_supervisor_mid_scale_event_recovers(tmp_path):
                     return True
 
             for pid in orphan_pids:
-                deadline = time.monotonic() + 10.0
+                deadline = time.monotonic() + LOADED_WAIT_S
                 while time.monotonic() < deadline and not dead(pid):
                     time.sleep(0.05)
                 assert dead(pid), f"orphan {pid} still alive"
             assert sup_b.stats()["orphans_reaped"] == 2
-            wait_routable(sup_b, 2)
+            wait_routable(sup_b, 2, timeout=LOADED_WAIT_S)
             scaler = Autoscaler(
                 sup_b, router_b,
                 cfg=AutoscalerConfig(min_workers=1, max_workers=4,
                                      cooldown_s=0.0, breach_polls=3,
-                                     warm_timeout_s=30.0))
+                                     warm_timeout_s=LOADED_WAIT_S))
             assert scaler.stats()["target_workers"] == 3
             assert scaler.poll_once() == "reconcile_up"
             assert len(sup_b.routable_workers()) == 3

@@ -431,7 +431,11 @@ def test_spawn_fault_retries_with_backoff(tmp_path):
 
 @pytest.mark.chaos
 def test_probe_fault_marks_a_live_worker_unhealthy_then_recovers(tmp_path):
-    sup = make_supervisor(tmp_path, n=1)
+    # The monitor ticks once at start, then never again: only this test's
+    # own poll_once can take the one-shot fault (wait_routable polls by
+    # itself). At the default 0.15 s interval the monitor could take it,
+    # and the test's probe then saw a worker already healthy again.
+    sup = make_supervisor(tmp_path, n=1, probe_interval_s=3600.0)
     try:
         sup.start()
         wait_routable(sup, 1)

@@ -231,7 +231,7 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "pipeline.pdb", "pipeline.native", "pipeline.residue_features", "pipeline.postprocess",
     "pipeline.pair", "data.analysis", "data.convert", "cli.build_dataset", "cli.analyze",
     "obs.device", "obs.attribution", "obs.kernelquery", "cli.attribute", "cli.fsck",
-    "parallel.multihost", "parallel.mesh", "parallel.train"))
+    "parallel.multihost", "parallel.mesh", "parallel.train", "parallel.pair"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -240,7 +240,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import deepinteract_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, pair_shard_check\n"
         f"missing = [m for m in {LIFECYCLE_MODULES!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))"

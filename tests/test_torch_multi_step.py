@@ -21,10 +21,13 @@ from deepinteract_tpu.training.optim import OptimConfig as JaxOptimConfig
 from deepinteract_tpu.training.optim import cosine_warm_restarts as jax_schedule
 from deepinteract_tpu.training.optim import make_optimizer
 from deepinteract_tpu.training.steps import TrainState as JaxTrainState
+from deepinteract_tpu.training.steps import loss_and_updates as jax_loss_and_updates
 from deepinteract_tpu.training.steps import multi_eval_step as jax_multi_eval_step
 from deepinteract_tpu.training.steps import multi_train_step as jax_multi_train_step
 from deepinteract_tpu.training.steps import stack_microbatches
+from deepinteract_tpu_torch.models.layers import DropoutKey, dropout_rng
 from deepinteract_tpu_torch.models.model import DeepInteract
+from deepinteract_tpu_torch.training.objective import contact_loss
 from deepinteract_tpu_torch.training.optim import OptimConfig, cosine_warm_restarts_lr
 from deepinteract_tpu_torch.training.steps import (create_train_state, multi_eval_step,
                                                    multi_train_step, train_step)
@@ -36,6 +39,11 @@ POISONED = 1  # the middle batch of the run
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 TOL = dict(rtol=1e-4, atol=1e-4)
 OPTIM = dict(lr=1e-2, steps_per_epoch=3, num_epochs=2, t0_epochs=1)
+# Seeds of the 1e-7 weight moves that measure the reference's own spread.
+# The spread of a parameter that AdamW moved on a noise-level gradient is
+# a draw between 0 and 2 * lr, so two moves under-estimated it (ROADMAP
+# queue 3): eight sample it.
+MOVED_SEEDS = tuple(range(1, 9))
 
 
 def _shallow(cfg):
@@ -99,6 +107,39 @@ def _jax_run(jcfg, variables, batches, accumulate):
 _JAX_STEPS = {}
 
 
+def _jax_grads(jcfg, variables, batches):
+    """The JAX train-mode gradient of each batch's loss at ``variables``,
+    on the port's names (dropout is off in this config)."""
+    if "grad" not in _JAX_STEPS:
+        _JAX_STEPS["grad"] = (JaxDeepInteract(jcfg), jax.jit(jax.grad(
+            lambda p, s, b: jax_loss_and_updates(p, s, b, False, jax.random.PRNGKey(0))[0])))
+    model, grad = _JAX_STEPS["grad"]
+    state = JaxTrainState.create(apply_fn=model.apply, params=variables["params"],
+                                 tx=optax.identity(), batch_stats=variables["batch_stats"],
+                                 dropout_rng=jax.random.PRNGKey(0),
+                                 bad_steps=jnp.zeros((), jnp.int32))
+    out = []
+    for batch in batches:
+        grads = grad(variables["params"], state, batch)
+        ref = DeepInteract(_shallow(port_cfg()))
+        load_jax_variables(ref, {"params": jax.tree_util.tree_map(np.asarray, grads),
+                                 "batch_stats": variables["batch_stats"]})
+        out.append({n: p.detach().clone() for n, p in ref.named_parameters()})
+    return out
+
+
+def _port_grads(variables, batches):
+    """The port's train-mode gradient of each batch's loss at ``variables``."""
+    out = []
+    for batch in batches:
+        model = _port_state(variables).model.train()
+        with dropout_rng(model, DropoutKey(torch.tensor(0), torch.tensor(0))):
+            contact_loss(model(batch.graph1, batch.graph2), batch.contact_map,
+                         batch.pair_mask).backward()
+        out.append({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+    return out
+
+
 def _perturbed(variables, seed):
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
@@ -111,16 +152,35 @@ def _perturbed(variables, seed):
 def test_multi_train_step_matches_jax(run, accumulate):
     """[K] loss 1e-5 and grad norm 1e-4 (NaN at the poisoned step), the
     guard's bad_step and bad_steps exact, the step and skip counters
-    exact, and the final parameters and batch statistics 1e-4 plus four
-    times the reference's own float32 spread (batch norms: ROADMAP queue
-    3)."""
+    exact; each clean batch's gradient at the starting weights (under
+    accumulation, the run's step gradients before AdamW) 1e-4 plus four
+    times the reference's gradient spread; and the final parameters and
+    batch statistics 1e-4 plus four times the reference's own float32
+    spread, each spread the largest move over :data:`MOVED_SEEDS` (batch
+    norms and AdamW on noise-level gradients: ROADMAP queue 3)."""
     jcfg, variables, jax_batches, port_batches = run
     ref, jm, (jstep, jbad) = _jax_run(jcfg, variables, jax_batches, accumulate)
+    clean = [i for i in range(K) if i != POISONED]
+    ref_grads = _jax_grads(jcfg, variables, [jax_batches[i] for i in clean])
     spread = dict.fromkeys(ref, 0.0)
-    for seed in (1, 2):
-        moved = _jax_run(jcfg, _perturbed(variables, seed), jax_batches, accumulate)[0]
+    grad_spread = [dict.fromkeys(g, 0.0) for g in ref_grads]
+    for seed in MOVED_SEEDS:
+        moved_vars = _perturbed(variables, seed)
+        moved = _jax_run(jcfg, moved_vars, jax_batches, accumulate)[0]
         for name in spread:
             spread[name] = max(spread[name], (moved[name] - ref[name]).abs().max().item())
+        for bar, ref_g, got_g in zip(grad_spread, ref_grads, _jax_grads(
+                jcfg, moved_vars, [jax_batches[i] for i in clean])):
+            for name in bar:
+                bar[name] = max(bar[name], (got_g[name] - ref_g[name]).abs().max().item())
+
+    for i, ref_g, got_g, bar in zip(clean, ref_grads,
+                                    _port_grads(variables, [port_batches[i] for i in clean]),
+                                    grad_spread):
+        for name, g in got_g.items():
+            np.testing.assert_allclose(g.numpy(), ref_g[name].numpy(),
+                                       err_msg=f"gradient of batch {i}: {name}",
+                                       rtol=TOL["rtol"], atol=TOL["atol"] + 4 * bar[name])
 
     state = _port_state(variables, accumulate)
     got = {k: v.numpy() for k, v in multi_train_step(state, port_batches, guard=True).items()}

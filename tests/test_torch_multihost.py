@@ -31,8 +31,8 @@ def test_shard_filenames_for_host_matches_jax(n, hosts):
 
 def test_single_process_helpers_degrade_as_in_jax():
     """No group: rank 0 of 1, every host-side helper returns the local
-    answer, and the exit barrier is a no-op; the data axis needs a group
-    and refuses a pair axis."""
+    answer, and the exit barrier is a no-op; the grid needs a group, with
+    a pair axis as without."""
     assert multihost.initialize_distributed() == 0 and not dist.is_initialized()
     assert multihost.process_index() == 0 and multihost.process_count() == 1
     assert multihost.is_primary_host() and not multihost.can_agree()
@@ -46,7 +46,7 @@ def test_single_process_helpers_degrade_as_in_jax():
     multihost.exit_barrier()
     with pytest.raises(RuntimeError, match="initialize_distributed"):
         mesh.make_mesh()
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         mesh.make_mesh(num_pair=2)
 
 
@@ -174,14 +174,15 @@ def test_two_ranks_agree_through_the_store_and_the_host_group(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--num_pair_shards", "2"], NotImplementedError, "10b"),
+    (["--num_pair_shards", "100000"], ValueError, "needs 100000 devices"),
     (["--num_devices", "100000"], ValueError, "device"),
     (["--num_devices", "2", "--coordinator_address", "file://x", "--num_processes", "3",
       "--process_id", "0"], ValueError, "disagree"),
 ], ids=["pair_shards", "too_many_devices", "inconsistent"])
 def test_train_cli_refuses_a_topology_it_cannot_run(tmp_path, flags, error, match):
-    """No fallback: a pair axis, more devices than the host has, and
-    contradictory flags raise before any group or process is started."""
+    """No fallback: a pair axis or a data axis wider than the host's
+    devices, and contradictory flags, raise before any group or process is
+    started."""
     from deepinteract_tpu_torch.cli import train as train_cli
 
     args = train_cli.parse_args(["--dips_root", str(tmp_path), "--device", "cpu",
