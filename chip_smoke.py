@@ -97,6 +97,13 @@ Phases, in order; any failure exits non-zero:
      CSR builds) per capture (0, 0, 2) and (4, 0, 2), the replay against
      the eager forward (bitwise, else 1e-6) and the served map against
      ``predict_complex`` (1e-6);
+ 9b. serving's pair placement over a group of one (the group ``cli.serve
+     --shard_pair_map`` makes: NCCL at world size 1, P = 1), in process,
+     with phase 9's seeded weights: its over-bucket complex's key captured
+     at warm-up with (4, 0, 2) at its capture and its halos, norm and SE
+     sums and row gather counted by site, the served map bitwise phase
+     9's, the capture seconds and replay device time beside phase 9's key;
+     the group destroyed before phase 10;
  10. the split phase at the flagship width: a seeded synthetic library of
      16 chains of 40-250 residues (buckets 64-256) screened all-vs-all
      (120 pairs, ``--screen_batch 4``) through one CUDA graph per
@@ -2152,6 +2159,14 @@ def run_serving(cfg, raws, tiled_raw, seed, device, smi) -> dict:
     replay_host_ms = statistics.median(host)
     log(f"  replay call 256x192 b1: host {replay_host_ms:.4f} ms (copies + one graph "
         f"launch), device {graph_ms:.3f} ms (CUDA events, median of 20)")
+    # The over-bucket key's capture and replay: phase 9b's one-rank pair
+    # group serves the same complex through its own key.
+    key_t, _ = _served_batch(engine, [tiled_raw])
+    entry_t = engine._entries[key_t]
+    with engine._exec_lock:
+        tiled_graph_ms = time_ms(lambda: entry_t.graph.replay(), runs=PAIR_TIME_RUNS, warmup=1)
+    log(f"  over-bucket key {engine._key_label(key_t)}: captured in {entry_t.seconds:.3f} s, "
+        f"replay device {tiled_graph_ms:.3f} ms (median of {PAIR_TIME_RUNS})")
 
     # The warm path captured nothing.
     stats = engine.stats()
@@ -2175,8 +2190,92 @@ def run_serving(cfg, raws, tiled_raw, seed, device, smi) -> dict:
             "tiled_vs_predict_max": tiled_diff, "times_ms": times,
             "eight_sequential_ms": sequential_s * 1e3, "eight_concurrent_ms": coalesced_s * 1e3,
             "replay_host_ms": replay_host_ms, "replay_device_ms": graph_ms,
+            "tiled_capture_s": entry_t.seconds, "tiled_replay_device_ms": tiled_graph_ms,
+            "tiled_probs": tiled["probs"],  # phase 9b's reference; popped before printing
             "peak_gib": peak_gib, "reserved_gib": reserved_gib,
             "construct_s": construct_s, "http": http}
+
+
+# Phase 9b: the over-bucket complex through the pair placement of a group of
+# one (cli.serve --shard_pair_map): its key and the replays timed.
+PAIR_WARMUP = ((768, 512, 1),)
+PAIR_TIME_RUNS = 3
+PAIR_SITES = ("halo", "pair_norm", "pair_se", "pair_gather")
+
+
+def run_serving_pair(cfg, tiled_raw, seed, device, phase9) -> dict:
+    """Phase 9b: a one-rank NCCL group (``parallel.mesh.serving_mesh((1,
+    1), shard_pair_map=True)``, the group ``cli.serve --shard_pair_map``
+    makes) serving phase 9's over-bucket complex through the ``pair``
+    placement with phase 9's seeded weights: its key captured at warm-up
+    with the halos, pair statistics and row gather inside, (K1, K2, CSR
+    builds) at the capture as phase 9's keys, the served map bitwise
+    phase 9's, the capture seconds and replay device time beside phase
+    9's key; the group destroyed before phase 10."""
+    from deepinteract_tpu_torch.parallel import multihost
+    from deepinteract_tpu_torch.parallel.mesh import serving_mesh
+    from deepinteract_tpu_torch.serving import EngineConfig, InferenceEngine
+    from deepinteract_tpu_torch.serving.graphs import WARMUP_RUNS
+    from deepinteract_tpu_torch.serving.group import ServingGroup
+
+    log("== phase 9b: serving's pair placement over a group of one (--shard_pair_map, "
+        "P = 1, NCCL), phase 9's over-bucket complex and weights")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as rdv:
+        multihost.initialize_distributed(f"file://{os.path.join(rdv, 'store')}", 1, 0, device)
+        try:
+            group = ServingGroup(serving_mesh((1, 1), shard_pair_map=True))
+            backend = "nccl" if device.type == "cuda" else "gloo"
+            check(multihost.backend() == backend, f"backend {multihost.backend()}, not {backend}")
+            reset_launches()
+            engine = InferenceEngine(cfg, cfg=EngineConfig(
+                max_batch=4, warmup_buckets=PAIR_WARMUP, result_cache_size=0,
+                shard_pair_map=True, pair_shard_threshold=512), seed=seed, device=device,
+                group=group)
+            counts = launches()
+            inventory = engine.stats()["compile_inventory"]
+            label, info = next(iter(inventory.items()))
+            check(len(inventory) == 1 and label.endswith("/pair") and info["placement"] == "pair",
+                  f"the pair group's warm keys: {sorted(inventory)}")
+            per_capture = (info["k1_launches"], info["k2_launches"], info["csr_builds"])
+            expect = (LAUNCHES_PER_ENCODE_PAIR, 0, BUILDS_PER_ENCODE_PAIR)
+            # Around the engine's construction: the key's eager warm-up
+            # runs and its capture.
+            around = tuple((WARMUP_RUNS + 1) * c for c in expect)
+            check(per_capture == expect and counts == around,
+                  f"pair key counted (K1, K2, CSR builds) {per_capture} at its capture and "
+                  f"{counts} around the warm-up, expected {expect} and {around}")
+            out = engine.predict(tiled_raw)
+            # Read after the first replay: a CPU rehearsal's entry counts
+            # them there, a card's at its capture.
+            reduces = engine.stats()["compile_inventory"][label]["all_reduces"]
+            check(set(reduces) == set(PAIR_SITES) and reduces["pair_gather"] == 1,
+                  f"pair capture's collectives by site: {reduces}")
+            diff = float(np.abs(out["probs"] - phase9["tiled_probs"]).max())
+            check(out["bucket"] == (768, 512) and np.array_equal(out["probs"],
+                                                                 phase9["tiled_probs"]),
+                  f"pair placement's {TILED_COMPLEX} map vs phase 9's: max |diff| {diff:.3g} "
+                  "(bitwise: one pair rank's halo adds exact zeros)")
+            check(engine.stats()["capture_count"] == 1, "the served request captured again")
+            (key, entry), = engine._entries.items()
+            with engine._exec_lock:
+                graph_ms = time_ms(lambda: entry.graph.replay(), runs=PAIR_TIME_RUNS, warmup=1)
+            engine.close()
+            engine.stop_group()
+            engine.release_graphs()
+        finally:
+            multihost.exit_barrier("chip-smoke-9b")
+    check(not torch.distributed.is_initialized(), "the group of one outlived phase 9b")
+    wall_s = time.perf_counter() - t0
+    log(f"  {label}: captured in {entry.seconds:.3f} s (phase 9: {phase9['tiled_capture_s']:.3f} "
+        f"s), (K1, K2, CSR builds) {per_capture}, collectives {reduces}; replay device "
+        f"{graph_ms:.3f} ms (phase 9: {phase9['tiled_replay_device_ms']:.3f} ms; medians of "
+        f"{PAIR_TIME_RUNS}); map bitwise phase 9's; phase {wall_s:.3f} s")
+    return {"label": label, "capture_s": entry.seconds, "per_capture": per_capture,
+            "launches_around_warmup": counts,
+            "collectives": reduces, "replay_device_ms": graph_ms, "bitwise": True,
+            "phase9_capture_s": phase9["tiled_capture_s"],
+            "phase9_replay_device_ms": phase9["tiled_replay_device_ms"], "wall_s": wall_s}
 
 
 # Phase 9's keys of the configurations that capture since the GCN and
@@ -4555,9 +4654,12 @@ def main(argv=None) -> int:
     with phase("8c"):
         supervisor = run_supervisor(args.seed)
     with phase("9"):
-        serving = run_serving(cfg, raws, random_raw_complex(*TILED_COMPLEX, rng), args.seed,
-                              device, smi)
+        tiled_raw = random_raw_complex(*TILED_COMPLEX, rng)
+        serving = run_serving(cfg, raws, tiled_raw, args.seed, device, smi)
         serving["configs"] = run_serving_configs(cfg, raws, args.seed, device)
+    with phase("9b"):
+        serving["pair_group"] = run_serving_pair(cfg, tiled_raw, args.seed, device, serving)
+        del serving["tiled_probs"]
     # Phase 15 reads what phases 10-12 leave in these two directories.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_split_") as work, \
             tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as dispatch_work:
@@ -4593,6 +4695,8 @@ def main(argv=None) -> int:
                                             for path in config_paths},
                                          **{path: c[2] for path, c in more_paths.items()},
                                          "serve_per_capture": serving["per_capture"][2],
+                                         "serve_pair_group_per_capture":
+                                             serving["pair_group"]["per_capture"][2],
                                          **{f"serve_{name}_per_capture": c["per_capture"][2]
                                             for name, c in serving["configs"].items()},
                                          "screen": screening["launches"][2],
@@ -4637,6 +4741,9 @@ def main(argv=None) -> int:
                                  # not run at replay), and the replays of every entry.
                                  "serve_per_capture": serving["per_capture"][0],
                                  "serve_replays": serving["replays"],
+                                 # Phase 9b: at the pair key's capture (P = 1).
+                                 "serve_pair_group_per_capture":
+                                     serving["pair_group"]["per_capture"][0],
                                  **{f"serve_{name}_per_capture": c["per_capture"][0]
                                     for name, c in serving["configs"].items()},
                                  # Phase 10: counted around the screen (at each encode
@@ -4689,6 +4796,8 @@ def main(argv=None) -> int:
                                  **{path: configs[path]["launches"][1] for path in config_paths},
                                  **{path: c[1] for path, c in more_paths.items()},
                                  "serve_per_capture": serving["per_capture"][1],
+                                 "serve_pair_group_per_capture":
+                                     serving["pair_group"]["per_capture"][1],
                                  **{f"serve_{name}_per_capture": c["per_capture"][1]
                                     for name, c in serving["configs"].items()},
                                  "screen": screening["launches"][1],

@@ -78,11 +78,29 @@ def add_distributed_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--shard_pair_map", action="store_true",
                    help="context-parallel pair-map sharding over the pair group (with "
                         "--num_pair_shards 1: the sharded path over a group of one)")
+    add_coordinator_args(g)
+
+
+def add_coordinator_args(g) -> None:
+    """The flags that join one rank of a multi-process group (rank 0 gives
+    them to the ranks it starts)."""
     g.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of rank 0's store (or file://PATH) of a multi-process "
                         "run (the reference's --num_compute_nodes)")
     g.add_argument("--num_processes", type=int, default=None)
     g.add_argument("--process_id", type=int, default=None)
+
+
+def add_pair_flags(g) -> None:
+    """The JAX model flags of pair-map sharding, as ``cli.predict`` and
+    ``cli.serve`` parse them (``cli.serve`` reads ``--shard_pair_map``;
+    a pair axis of P > 1 is ``cli.serve --mesh_shape DxP``)."""
+    g.add_argument("--shard_pair_map", action="store_true",
+                   help="context-parallel pair-map sharding (cli.serve: the pair placement "
+                        "over a pair axis of one; cli.predict refuses it)")
+    g.add_argument("--num_pair_shards", type=int, default=1,
+                   help="context-parallel shards of the pair map (the JAX flag; a pair axis "
+                        "of P > 1 is cli.serve --mesh_shape DxP, so anything but 1 exits 2)")
 
 
 def add_data_args(p: argparse.ArgumentParser) -> None:
@@ -255,13 +273,13 @@ def add_serving_args(p: argparse.ArgumentParser) -> None:
                    help="comma list of B1xB2xBATCH keys captured at startup (e.g. "
                         "128x128x1,128x128x8) so first requests replay warm graphs")
     g.add_argument("--mesh_shape", type=str, default="",
-                   help="serving mesh as DATAxPAIR device counts (the JAX flag). An "
-                        "engine worker of this port serves one device: any shape but "
-                        "'' or 1x1 exits 2. Stub workers advertise it, so the router's "
-                        "topology-aware routing can be rehearsed")
+                   help="serving mesh as DATAxPAIR device counts (the JAX flag): a worker of "
+                        "D*P processes, one per device, whose batch slots split over the "
+                        "data axis and whose over-threshold buckets decode row-sharded over "
+                        "the pair axis ('' or 1x1: one device)")
     g.add_argument("--pair_shard_threshold", type=int, default=512,
-                   help="bucket pad at/above which a mesh with a pair axis would decode "
-                        "row-sharded; the router uses it for topology-aware routing")
+                   help="bucket pad at/above which a mesh with a pair axis decodes one "
+                        "complex row-sharded; the router uses it for topology-aware routing")
     g.add_argument("--result_cache_size", type=int, default=256,
                    help="LRU entries of depadded contact maps keyed on a content hash of "
                         "the featurized complex (0 disables)")

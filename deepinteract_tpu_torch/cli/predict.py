@@ -22,7 +22,9 @@ variables (``weights.save_npz``); ``--ckpt_name`` a checkpoint directory
 of the port's trainer, whose best/ step is restored; with neither the
 model gets the port's seeded init. ``--input_indep`` zeroes every input
 feature first (the reference's control). Runs on the GPU unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``--shard_pair_map`` and ``--num_pair_shards``
+(the JAX model flags) exit 2: a row-sharded map is served by
+``cli.serve --mesh_shape DxP``.
 
     python -m deepinteract_tpu_torch.cli.predict \
         (--input_npz X | --left_pdb L --right_pdb R [--save_npz C]) --output_dir Y \
@@ -39,8 +41,9 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from deepinteract_tpu_torch.cli.args import (add_calibration_args, add_restore_args,
-                                             build_parser, model_config_from_args)
+from deepinteract_tpu_torch.cli.args import (add_calibration_args, add_pair_flags,
+                                             add_restore_args, build_parser,
+                                             model_config_from_args)
 from deepinteract_tpu_torch.data.graph import stack_complexes
 from deepinteract_tpu_torch.data.io import load_complex_npz, to_paired_complex
 from deepinteract_tpu_torch.device import resolve_device
@@ -125,11 +128,19 @@ def main(argv=None) -> int:
                         help="zero all input features (the reference's control)")
     add_restore_args(parser)
     add_calibration_args(parser)
+    add_pair_flags(parser.add_argument_group("pair-map sharding"))
     args = parser.parse_args(argv)
     if not args.input_npz and not (args.left_pdb and args.right_pdb):
         parser.error("provide --input_npz or both --left_pdb and --right_pdb")
     if args.weights and args.ckpt_name:
         parser.error("give --weights or --ckpt_name, not both")
+    if args.shard_pair_map or args.num_pair_shards != 1:
+        # The JAX predict parses both flags but makes no mesh, so its
+        # row-sharded decode cannot run either.
+        print("predict: --shard_pair_map / --num_pair_shards: a one-shot predict has no "
+              "device group; serve the model row-sharded with cli.serve --mesh_shape DxP "
+              "(--pair_shard_threshold picks the buckets)", file=sys.stderr)
+        return 2
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

@@ -68,9 +68,7 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
-import time
 from itertools import islice
 
 import torch
@@ -86,7 +84,8 @@ from deepinteract_tpu_torch.device import resolve_device
 from deepinteract_tpu_torch.models.model import DeepInteract
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.parallel import multihost
-from deepinteract_tpu_torch.parallel.mesh import available_devices, make_mesh
+from deepinteract_tpu_torch.parallel.launch import rank_group
+from deepinteract_tpu_torch.parallel.mesh import make_mesh
 from deepinteract_tpu_torch.robustness.preemption import TrainingPreempted
 from deepinteract_tpu_torch.training.loop import Trainer
 from deepinteract_tpu_torch.training.lr_finder import lr_find
@@ -142,11 +141,11 @@ def data_parallel_run(args: argparse.Namespace, module: str = "deepinteract_tpu_
     flags, or, with ``--num_devices D`` and/or ``--num_pair_shards P``
     (or ``--shard_pair_map``), rank 0 here and ranks 1..D*P-1 started as
     copies of the command line (``python -m module``), meeting at a
-    FileStore in ``--ckpt_dir``. On the way out every rank meets at the
-    exit barrier and the group is destroyed; the started ranks are waited
-    for, and one that failed raises. On an error other than a preemption
-    the group is destroyed without the barrier and the started ranks are
-    killed."""
+    FileStore in ``--ckpt_dir`` (``parallel.launch.rank_group``). On the
+    way out every rank meets at the exit barrier and the group is
+    destroyed; the started ranks are waited for, and one that failed
+    raises. On an error other than a preemption the group is destroyed
+    without the barrier and the started ranks are killed."""
     device = resolve_device(args.device)
     pairs = args.num_pair_shards
     if pairs < 1:
@@ -161,56 +160,14 @@ def data_parallel_run(args: argparse.Namespace, module: str = "deepinteract_tpu_
     if not coordinated and args.num_devices <= 0 and not sharded:
         yield None
         return
-    children, store_path = [], None
-    if coordinated:
-        multihost.initialize_distributed(args.coordinator_address, args.num_processes,
-                                         args.process_id, device)
-    else:
-        have = available_devices(device)
-        if n > have:
-            raise ValueError(f"--num_devices {max(args.num_devices, 1)} x --num_pair_shards "
-                             f"{pairs} needs {n} devices: this host has {have} {device.type} "
-                             "device(s)")
-        run_dir = args.ckpt_dir or "."
-        os.makedirs(run_dir, exist_ok=True)
-        store_path = os.path.abspath(os.path.join(
-            run_dir, f".rendezvous-{os.getpid()}-{time.time_ns()}"))
-        flags = ["--coordinator_address", f"file://{store_path}", "--num_processes", str(n)]
-        children = [subprocess.Popen([sys.executable, "-m", module,
-                                      *args.argv, *flags, "--process_id", str(rank)])
-                    for rank in range(1, n)]
-        try:
-            multihost.initialize_distributed(f"file://{store_path}", n, 0, device)
-        except BaseException:
-            _stop(children)
-            raise
-    try:
-        yield make_mesh(num_pair=pairs, shard_pair_map=sharded)
-    except TrainingPreempted:
-        _leave(children, store_path, "preempted-exit")
-        raise
-    except BaseException:
-        _stop(children)
-        multihost.abort_group()
-        raise
-    _leave(children, store_path, "train-exit")
-
-
-def _stop(children) -> None:
-    for child in children:
-        child.kill()
-        child.wait()
-
-
-def _leave(children, store_path, tag: str) -> None:
-    """The exit barrier, then the started ranks' exit codes."""
-    multihost.exit_barrier(tag)
-    failed = [(rank, child.wait()) for rank, child in enumerate(children, start=1)]
-    failed = [(rank, rc) for rank, rc in failed if rc != 0]
-    if store_path and os.path.exists(store_path):
-        os.remove(store_path)
-    if failed:
-        raise RuntimeError(f"data-parallel ranks exited with codes {failed}")
+    coordinator = ((args.coordinator_address, args.num_processes, args.process_id)
+                   if coordinated else None)
+    grid = lambda: make_mesh(num_pair=pairs, shard_pair_map=sharded)  # noqa: E731
+    with rank_group(args.argv, module, n, grid, device, args.ckpt_dir or ".",
+                    coordinator=coordinator,
+                    label=f"--num_devices {max(args.num_devices, 1)} x --num_pair_shards {pairs}",
+                    graceful=(TrainingPreempted,), exit_tag="train-exit") as group:
+        yield group.mesh
 
 
 def _run(args: argparse.Namespace):

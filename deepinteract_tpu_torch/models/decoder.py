@@ -83,6 +83,12 @@ class DecoderConfig:
         return policy.compute_dtype(self.compute_dtype)
 
 
+def halo_rows(cfg: DecoderConfig) -> int:
+    """The widest halo a pair-sharded decode of ``cfg`` exchanges: the
+    largest dilation, or the attention window's half-width."""
+    return max(*cfg.dilation_cycle, cfg.region_size // 2 if cfg.use_attention else 0)
+
+
 def _save_convs(ctx, op, *args, **kwargs):
     """The 'convs' policy: keep every convolution's output, recompute the
     rest."""
@@ -333,10 +339,8 @@ class InteractionDecoder(nn.Module):
         self.phase2_conv = nn.Conv2d(ch, cfg.num_classes, 1)
 
     def halo_rows(self) -> int:
-        """The widest halo a pair-sharded decode exchanges: the largest
-        dilation, or the attention window's half-width."""
-        cfg = self.cfg
-        return max(*cfg.dilation_cycle, cfg.region_size // 2 if cfg.use_attention else 0)
+        """The widest halo a pair-sharded decode exchanges (:func:`halo_rows`)."""
+        return halo_rows(self.cfg)
 
     def forward(self, pair_input, mask, pair=None):
         m = mask[:, None].to(self.cfg.dtype)  # [B, 1, L1, L2]

@@ -78,7 +78,7 @@ class ModelConfig:
                              f"expected one of {INTERACT_MODULE_TYPES}")
         if self.shard_pair_map and self.interact_module_type == "deeplab":
             raise ValueError("pair-map sharding of the DeepLab decoder is not ported "
-                             "(ROADMAP item 10c, then DeepLab's pair sharding): use the "
+                             "(DeepLab's pair sharding, ROADMAP queue 1 item 2): use the "
                              "dilated decoder or drop shard_pair_map")
         if self.compute_dtype is not None:
             validate_compute_dtype(self.compute_dtype)
@@ -202,8 +202,8 @@ class DeepInteract(nn.Module):
         if pair is None:
             raise RuntimeError(
                 "shard_pair_map decodes over a pair group: run it inside "
-                "parallel.pair.pair_sharded(mesh.pair), as cli.train and cli.test do "
-                "(serving's mesh placement is ROADMAP item 10c)")
+                "parallel.pair.pair_sharded(mesh.pair), as cli.train, cli.test and "
+                "cli.serve's pair placement do")
         return pair
 
     def decode(self, feats1, feats2, mask1, mask2):

@@ -12,8 +12,8 @@ once, on every rank in the same order: a *data group* per pair index (the
 ranks that share it: together they hold the global batch once) and a
 *pair group* per data index (the ranks that split one batch's pair map by
 rows, ``parallel/pair.py``). A rank holds only local tensors, so the JAX
-``host_local_array`` has no counterpart. ``serving_mesh`` is ROADMAP item
-10c.
+``host_local_array`` has no counterpart. :func:`serving_mesh` is the grid
+of one serving worker (``cli.serve --mesh_shape DxP``, ``serving/group.py``).
 
 The step's collectives go through :class:`DataMesh` and
 :class:`~deepinteract_tpu_torch.parallel.pair.PairMesh`, which count each
@@ -28,7 +28,8 @@ MaskedBatchNorm` call: the sums with the count, then the centred squares)
 and ``batch_norm_grad`` (their backward, issued by the autograd engine).
 Over the pair group (``parallel/pair.py``): ``halo`` / ``halo_grad``,
 ``pair_norm`` / ``pair_norm_grad``, ``pair_se`` / ``pair_se_grad``,
-``pair_loss`` and ``pair_gather``.
+``pair_loss`` and ``pair_gather``. A serving worker's data placement
+gathers its slots over the data group (``slot_gather``).
 """
 
 from __future__ import annotations
@@ -91,6 +92,17 @@ class DataMesh:
         (the resume's state, on the main thread)."""
         for t in tensors:
             dist.broadcast(t, src=0)
+
+    def gather_slots(self, tensor: torch.Tensor, site: str = "slot_gather") -> torch.Tensor:
+        """The whole batch from every data rank's slots (no autograd):
+        ``tensor`` is ``[s, ...]`` on each rank of the data group, the
+        result ``[s * num_data, ...]`` in data-rank order."""
+        t = tensor.detach().contiguous()
+        out = torch.empty((self.num_data * t.shape[0], *t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        ALL_REDUCES[site] += 1
+        dist.all_gather_into_tensor(out, t, group=self.data_group)
+        return out
 
     def all_reduce_autograd(self, tensor: torch.Tensor, site: str) -> torch.Tensor:
         """The sum over the data group, differentiable: its backward sums
@@ -178,6 +190,21 @@ def make_mesh(num_data: Optional[int] = None, num_pair: int = 1,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return mesh
+
+
+def serving_mesh(shape, shard_pair_map: bool = False) -> DataMesh:
+    """The grid one serving worker owns, from its ``--mesh_shape``
+    ``(num_data, num_pair)``: :func:`make_mesh`'s layout, so a worker's
+    row-sharded decode partitions as the sharded train step does. Both axes
+    are checked (a worker fails at startup on a topology its group does
+    not have, never at its first decode); ``shard_pair_map`` makes the
+    pair groups with one pair rank."""
+    if len(shape) != 2:
+        raise ValueError(f"serving mesh shape needs 2 axes, got {shape!r}")
+    num_data, num_pair = int(shape[0]), int(shape[1])
+    if num_data < 1 or num_pair < 1:
+        raise ValueError(f"serving mesh axes must be >= 1, got {num_data}x{num_pair}")
+    return make_mesh(num_data=num_data, num_pair=num_pair, shard_pair_map=shard_pair_map)
 
 
 _ACTIVE: Optional[DataMesh] = None

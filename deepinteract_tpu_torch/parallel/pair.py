@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -60,13 +61,13 @@ class PairMesh:
         rows (a halo comes from the immediate neighbours only)."""
         if total % self.size:
             raise ValueError(f"pair-map sharding: {total} rows do not split over "
-                             f"{self.size} pair shards (pad the chains to a multiple; "
-                             "ROADMAP item 10c)")
+                             f"{self.size} pair shards (pad the chains to a multiple, or "
+                             "use a pair axis that divides the bucket or the tile)")
         rows = total // self.size
         if rows < halo:
             raise ValueError(f"pair-map sharding: a shard of {rows} rows is narrower than "
                              f"the decoder's halo of {halo} rows ({total} rows over "
-                             f"{self.size} shards; ROADMAP item 10c)")
+                             f"{self.size} shards: use fewer pair shards or larger buckets)")
         return rows
 
     # -- collectives ------------------------------------------------------
@@ -176,22 +177,29 @@ def take_rows(x: torch.Tensor, slices: List[slice]) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-_ACTIVE: Optional[PairMesh] = None
+class _Active(threading.local):
+    pair: Optional[PairMesh] = None
+
+
+# Per thread: a serving engine enters ``pair_sharded`` on the thread that
+# captures or replays a key while other threads of its process serve
+# requests; none of them may see another thread's pair group.
+_ACTIVE = _Active()
 
 
 def active_pair() -> Optional[PairMesh]:
-    """The pair mesh of the sharded step running now (:func:`pair_sharded`),
-    None outside one."""
-    return _ACTIVE
+    """The pair mesh of the sharded step running now on this thread
+    (:func:`pair_sharded`), None outside one."""
+    return _ACTIVE.pair
 
 
 @contextlib.contextmanager
 def pair_sharded(pair: Optional[PairMesh]):
     """Inside the block a model with ``shard_pair_map`` decodes this
-    rank's rows over ``pair`` (nothing changes with None)."""
-    global _ACTIVE
-    previous, _ACTIVE = _ACTIVE, pair
+    rank's rows over ``pair`` (nothing changes with None); the block holds
+    for the calling thread only."""
+    previous, _ACTIVE.pair = _ACTIVE.pair, pair
     try:
         yield pair
     finally:
-        _ACTIVE = previous
+        _ACTIVE.pair = previous

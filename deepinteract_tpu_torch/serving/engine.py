@@ -32,20 +32,36 @@ pays the setup once and answers every request with one graph replay:
   :meth:`InferenceEngine.decode_executable`), so N chains cost N encodes
   and N^2 decodes instead of N^2 whole forwards.
 
+* **mesh placement** (``EngineConfig.mesh_shape`` ``(D, P)``): the worker
+  is a group of D*P processes, one per device (``serving/group.py``; rank
+  0 runs this engine's scheduler, the others follow its dispatches). As in
+  the JAX engine, batch slots split over the data axis (``data``; the slot
+  floor lifts to D, and a slot count D does not divide runs replicated,
+  ``repl``, on rank 0), and a bucket at or above ``pair_shard_threshold``
+  decodes one complex row-sharded over the pair axis (``pair``: the
+  encoder replicated on every pair rank, the dilated decoder on each
+  rank's rows, untiled or inside each tile); an encode is ``data`` when D
+  divides its slots, else ``repl``. Keys carry ``(mesh_shape,
+  placement)``, labels start with ``mesh{D}x{P}/`` and end with ``/pair``
+  or ``/repl``. ``shard_pair_map`` with a ``1x1`` shape is a group of one:
+  the pair placement over one pair rank (bitwise the one-device map).
+
 On the CPU (``device="cpu"``) the same engine runs each dispatch eagerly
 through the plain attention; nothing is captured there. On the card every
 key is captured or the dispatch raises ``BatchExecutionError(stage=
 "compile")``: no key is ever served eagerly. Every model configuration
 captures (the GCN encoder, the DeepLab decoder, tiled decoding, regional
-attention). The mesh placement and the tuning store of the JAX engine
-are not ported.
+attention); DeepLab takes no pair placement, which is refused at
+construction. The tuning store of the JAX engine is not ported.
 
 ``predict()`` is the blocking convenience wrapper over ``submit()``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
 import logging
 import threading
 import time
@@ -63,6 +79,7 @@ from deepinteract_tpu_torch.data.io import complex_lengths, to_paired_complex
 from deepinteract_tpu_torch.data.loader import make_bucket_fn
 from deepinteract_tpu_torch.data.synthetic import random_complex
 from deepinteract_tpu_torch.device import resolve_device
+from deepinteract_tpu_torch.models.decoder import halo_rows
 from deepinteract_tpu_torch.models.model import ModelConfig
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.obs import metrics as obs_metrics
@@ -76,9 +93,12 @@ from deepinteract_tpu_torch.serving.admission import (
     expired_counter,
 )
 from deepinteract_tpu_torch.serving.cache import ResultCache, content_hash
-from deepinteract_tpu_torch.serving.fleet import batch_slots
-from deepinteract_tpu_torch.serving.graphs import (decode_forward, encode_forward, make_entry,
-                                                   serve_forward)
+from deepinteract_tpu_torch.parallel.pair import PairMesh, row_slices
+from deepinteract_tpu_torch.serving.fleet import (batch_slots, mesh_label, mesh_label_prefix,
+                                                  mesh_placement, parse_mesh_shape)
+from deepinteract_tpu_torch.serving.graphs import (data_placed, decode_forward, encode_forward,
+                                                   make_entry, pair_placed, serve_forward)
+from deepinteract_tpu_torch.serving.group import GroupLost, check_same_weights, local_part
 from deepinteract_tpu_torch.serving.scheduler import MicroBatchScheduler
 from deepinteract_tpu_torch.weights import carried_signature, seeded_signature
 
@@ -133,6 +153,79 @@ class EngineConfig:
     # cap and global admitted-in-flight cap.
     max_queue_depth: int = 64
     max_inflight: int = 256
+    # The worker's mesh as (num_data, num_pair) devices (``--mesh_shape``);
+    # None / (1, 1) is the one-device engine, its keys and labels as
+    # before. A mesh engine needs its group (serving/group.py).
+    mesh_shape: Optional[Tuple[int, int]] = None
+    # Bucket pad at/above which a mesh with a pair axis decodes one
+    # complex row-sharded instead of splitting slots over the data axis.
+    pair_shard_threshold: int = 512
+    # The pair placement over a pair axis of one (``--shard_pair_map``;
+    # with a 1x1 shape, a group of one).
+    shard_pair_map: bool = False
+
+
+# The functions of a dispatch's op (serving/group.py's header).
+FORWARDS = {"forward": serve_forward, "encode": encode_forward, "decode": decode_forward}
+
+
+def lifted_bucket(bucket_fn, tile: int, n1: int, n2: int) -> Tuple[int, int]:
+    """``bucket_fn``'s (bucket_n1, bucket_n2), both lifted to multiples of
+    ``tile`` once either exceeds it (``InferenceEngine.bucket_for``)."""
+    b1, b2 = bucket_fn(n1, n2)
+    if b1 > tile or b2 > tile:
+        lift = lambda b: ((b + tile - 1) // tile) * tile  # noqa: E731
+        return lift(b1), lift(b2)
+    return b1, b2
+
+
+def check_mesh(model_cfg: ModelConfig, cfg: EngineConfig) -> None:
+    """Raise ``ValueError`` unless the engine can serve ``cfg``'s mesh:
+    DeepLab takes no pair axis, and every warm-up key of the ``pair``
+    placement splits into shards at least as wide as the decoder's halo
+    (``parallel.pair.PairMesh.rows``; per tile when tiled). No device or
+    group is needed: ``cli.serve`` asks before it starts the group."""
+    shape = parse_mesh_shape(cfg.mesh_shape)
+    if not (shape[1] > 1 or cfg.shard_pair_map):
+        return
+    if model_cfg.interact_module_type == "deeplab":
+        raise ValueError(
+            f"mesh {mesh_label(shape)}{' with shard_pair_map' if cfg.shard_pair_map else ''}: "
+            "the DeepLab decoder takes no pair placement (its pair sharding is ROADMAP queue 1 "
+            "item 2); serve it on a mesh without a pair axis (--mesh_shape Dx1)")
+    tile = int(model_cfg.tile_size)
+    bucket_fn = make_bucket_fn(cfg.pad_to_max_bucket, cfg.diagonal_buckets)
+    pair = PairMesh(0, shape[1], None, (), torch.device("cpu"))
+    halo = halo_rows(model_cfg.decoder)
+    for spec in cfg.warmup_buckets:
+        b1, b2 = lifted_bucket(bucket_fn, tile, spec[0], spec[1])
+        if mesh_placement(shape, b1, b2, cfg.pair_shard_threshold,
+                          cfg.shard_pair_map) != "pair":
+            continue
+        tiled = max(b1, b2) > tile
+        try:
+            row_slices(b1, pair, b1 // tile if tiled else 1, halo)
+        except ValueError as err:
+            raise ValueError(f"warm-up key {b1}x{b2} on mesh {mesh_label(shape)}: {err}") from None
+
+
+def _pair_sibling(model):
+    """The model's ``shard_pair_map`` twin: the same parameters, buffers and
+    submodules (a shallow copy), decoding this rank's rows."""
+    sibling = copy.copy(model)
+    sibling.cfg = dataclasses.replace(model.cfg, shard_pair_map=True)
+    return sibling
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacedEntry:
+    """A split-phase entry, captured on every rank its placement involves
+    (``single`` on one device): its op, key and placement, so
+    :meth:`InferenceEngine.replay_to_host` replays it as a dispatch."""
+
+    op: str
+    key: Tuple
+    placement: str
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -152,7 +245,14 @@ class InferenceEngine:
     port's trainer (its best/ step is served), ``weights`` a flat-path
     ``.npz`` or a ``{"params", "batch_stats"}`` tree of JAX variables;
     with neither the engine serves the seeded init. ``device`` defaults
-    to ``cuda`` (``device.resolve_device``: raises without a GPU)."""
+    to ``cuda`` (``device.resolve_device``: raises without a GPU).
+
+    A mesh engine (``cfg.mesh_shape`` other than 1x1, or
+    ``cfg.shard_pair_map``) takes its rank's ``group``
+    (``serving.group.ServingGroup``) and runs on its device. On rank 0 it
+    is the whole engine; on a follower (``serving.group.follow``) it
+    captures and replays what rank 0 announces. A mesh the engine cannot
+    serve raises ``ValueError`` here (:func:`check_mesh`)."""
 
     def __init__(
         self,
@@ -163,14 +263,30 @@ class InferenceEngine:
         metric_to_track: str = "val_ce",
         device=None,
         weights: Union[str, Mapping, None] = None,
+        group=None,
     ):
         base = model_cfg or ModelConfig()
-        self.device = resolve_device(device)
         self.cfg = cfg
-        if not base.tile_pair_map:
-            base = dataclasses.replace(base, tile_pair_map=True)
+        self._mesh_shape = parse_mesh_shape(cfg.mesh_shape)
+        check_mesh(base, cfg)
+        if (self._mesh_shape != (1, 1) or cfg.shard_pair_map) != (group is not None):
+            raise ValueError(f"mesh {mesh_label(self._mesh_shape)}"
+                             f"{' with shard_pair_map' if cfg.shard_pair_map else ''} and "
+                             f"{'a' if group is not None else 'no'} serving group: a mesh "
+                             "engine runs on its group (serving/group.py; cli.serve "
+                             "--mesh_shape starts it), a one-device engine on none")
+        if group is not None and group.shape != self._mesh_shape:
+            raise ValueError(f"mesh {mesh_label(self._mesh_shape)} on a "
+                             f"{mesh_label(group.shape)} group")
+        self.group = group
+        self.device = resolve_device(device) if group is None else group.mesh.device
+        # The engine's model decodes whole maps; the pair placement's twin
+        # shares its weights.
+        base = dataclasses.replace(base, tile_pair_map=True, shard_pair_map=False)
         self.model = load_model(base, self.device, weights, seed, ckpt_dir, metric_to_track)
         set_backend_precision(base.gnn.compute_dtype)
+        self._pair_model = (_pair_sibling(self.model) if group is not None
+                            and (cfg.shard_pair_map or self._mesh_shape[1] > 1) else None)
         self._tile = int(base.tile_size)
         self._base_bucket_fn = make_bucket_fn(cfg.pad_to_max_bucket, cfg.diagonal_buckets)
 
@@ -203,7 +319,9 @@ class InferenceEngine:
             self.restored_from = carried_signature(self.model)
         else:
             self.restored_from = None
-        if cfg.warmup_buckets:
+        if group is not None:
+            check_same_weights(group, self.model)
+        if cfg.warmup_buckets and (group is None or group.is_leader):
             self.warmup(cfg.warmup_buckets)
         self.admission = AdmissionController(
             max_queue_depth=cfg.max_queue_depth,
@@ -212,7 +330,10 @@ class InferenceEngine:
             self._flush, max_batch=cfg.max_batch,
             max_delay_ms=cfg.max_delay_ms,
             admission=self.admission,
-            on_expired=self._expired_in_queue)
+            on_expired=self._expired_in_queue,
+            # A group that fills the data axis is a whole mesh dispatch
+            # (the slot floor pads to D anyway): flush it at once.
+            flush_quantum=self._mesh_shape[0])
 
     # -- shape policy ------------------------------------------------------
 
@@ -224,16 +345,46 @@ class InferenceEngine:
         ``models/tiled.py:tile_grid`` requires BOTH padded lengths to be
         tile multiples — so the partner chain's bucket is lifted to the
         next tile multiple too (e.g. (300, 40) -> (512, 256) at tile 256)."""
-        b1, b2 = self._base_bucket_fn(n1, n2)
-        if b1 > self._tile or b2 > self._tile:
-            lift = lambda b: ((b + self._tile - 1) // self._tile) * self._tile
-            return lift(b1), lift(b2)
-        return b1, b2
+        return lifted_bucket(self._base_bucket_fn, self._tile, n1, n2)
 
-    def _batch_slots(self, n_requests: int) -> int:
+    def _batch_slots(self, n_requests: int, bucket: Optional[Tuple[int, int]] = None) -> int:
         """Coalesced groups pad to the next power of two (capped at
-        max_batch), so the per-bucket inventory stays O(log max_batch)."""
-        return batch_slots(n_requests, self.cfg.max_batch)
+        max_batch), so the per-bucket inventory stays O(log max_batch).
+        On a data axis the floor lifts to its size D, so every data rank
+        holds a slot; ``pair`` buckets keep their floor (one complex
+        row-shards instead)."""
+        lift = 1
+        if (self.group is not None and self._mesh_shape[0] > 1
+                and (bucket is None or self.placement_for(*bucket) != "pair")):
+            lift = self._mesh_shape[0]
+        return batch_slots(n_requests, self.cfg.max_batch, lift_to=lift)
+
+    @property
+    def mesh_shape(self) -> Tuple[int, int]:
+        """(num_data, num_pair) of the worker's mesh; (1, 1) on one device."""
+        return self._mesh_shape
+
+    def mesh_shape_label(self) -> str:
+        """The ``"DxP"`` topology label ``/healthz`` advertises."""
+        return mesh_label(self._mesh_shape)
+
+    def placement_for(self, b1: int, b2: int) -> str:
+        """One bucket's placement: ``single`` without a group, else the
+        shared policy (``serving/fleet.mesh_placement``: ``data`` for small
+        buckets, ``pair`` at or above ``pair_shard_threshold`` on a pair
+        axis, or on a pair axis of one with ``shard_pair_map``)."""
+        if self.group is None:
+            return "single"
+        return mesh_placement(self._mesh_shape, b1, b2, self.cfg.pair_shard_threshold,
+                              self.cfg.shard_pair_map)
+
+    def _effective_placement(self, b1: int, b2: int, slots: int) -> str:
+        """What one (bucket, slots) key runs: a ``data`` group whose slot
+        count the data axis does not divide runs replicated (``repl``)."""
+        placement = self.placement_for(b1, b2)
+        if placement == "data" and slots % self._mesh_shape[0]:
+            placement = "repl"
+        return placement
 
     def _bucket_key(self, raw: Dict) -> Tuple:
         """A request's scheduler key: its (bucket_n1, bucket_n2) and the
@@ -247,7 +398,7 @@ class InferenceEngine:
         b1, b2 = bucket_key[0], bucket_key[1]
         complexes = [to_paired_complex(raw, n_pad1=b1, n_pad2=b2,
                                        input_indep=self.cfg.input_indep) for raw in raws]
-        slots = self._batch_slots(len(complexes))
+        slots = self._batch_slots(len(complexes), (b1, b2))
         return stack_complexes(complexes + [complexes[0]] * (slots - len(complexes))), slots
 
     # -- graph cache -------------------------------------------------------
@@ -263,26 +414,26 @@ class InferenceEngine:
         with self._labels_lock:
             return list(self._warm_labels)
 
-    def _entry(self, key: Tuple, inputs: Tuple, fn=serve_forward):
+    def _entry(self, key: Tuple, inputs: Tuple, fn=serve_forward, model=None):
         """The key's entry; a cold key is captured from ``fn(model,
-        *inputs)`` (its shapes, and the data of the warm-up runs). The
-        caller holds ``_exec_lock``. A failed capture raises
-        ``BatchExecutionError(stage="compile")``."""
+        *inputs)`` (its shapes, and the data of the warm-up runs; ``model``
+        defaults to the engine's). The caller holds ``_exec_lock``. A
+        failed capture raises ``BatchExecutionError(stage="compile")``."""
         entry = self._entries.get(key)
         if entry is not None:
             return entry
         _COMPILE_INFLIGHT.inc()
         try:
-            entry = make_entry(self.model, inputs, self._pool, fn)
+            entry = make_entry(self.model if model is None else model, inputs, self._pool, fn)
         except Exception as exc:
-            raise BatchExecutionError(f"CUDA graph capture of {self._key_label(key)} "
+            raise BatchExecutionError(f"CUDA graph capture of {self._label(key)} "
                                       f"failed: {exc}", stage="compile") from exc
         finally:
             _COMPILE_INFLIGHT.dec()
         self._entries[key] = entry
         self.capture_count += 1
         with self._labels_lock:
-            self._warm_labels = tuple(sorted(map(self._key_label, self._entries)))
+            self._warm_labels = tuple(sorted(map(self._label, self._entries)))
         _COMPILES.inc()
         _COMPILE_SECONDS.observe(entry.seconds)
         return entry
@@ -303,13 +454,27 @@ class InferenceEngine:
             label += f"/k2_{sig2[0]}g2_{sig2[1]}"
         return label
 
+    def _placement_of_key(self, key: Tuple) -> str:
+        return "single" if self.group is None else key[-1]
+
+    def _label(self, key: Tuple) -> str:
+        """A graph-cache key's inventory label: :meth:`_key_label`, and on a
+        mesh engine (whose keys end with ``(mesh_shape, placement)``) the
+        JAX engine's ``mesh{D}x{P}/`` prefix and ``/pair`` or ``/repl``
+        suffix (a suffix: the router's warm check matches prefixes)."""
+        if self.group is None:
+            return self._key_label(key)
+        shape, placement = key[-2:]
+        label = mesh_label_prefix(shape) + self._key_label(key[:-2])
+        return f"{label}/{placement}" if placement in ("pair", "repl") else label
+
     def normalize_warmup(self, b1: int, b2: int, bs: int) -> Tuple[int, int, int]:
         """Map an operator warmup spec onto a key the REQUEST PATH can hit:
         buckets through :meth:`bucket_for` and batch through
         :meth:`_batch_slots`. Without this, ``--warmup_buckets 128x128x6``
         would capture a graph no request could look up."""
         nb1, nb2 = self.bucket_for(b1, b2)
-        return nb1, nb2, self._batch_slots(bs)
+        return nb1, nb2, self._batch_slots(bs, (nb1, nb2))
 
     def warmup(self, buckets: Sequence[Tuple[int, int, int]],
                knn: int = constants.KNN,
@@ -330,7 +495,78 @@ class InferenceEngine:
                  int(g.node_feats.shape[-1]), int(g.edge_feats.shape[-1]))
                 for g in (one.graph1, one.graph2))
             with self._exec_lock:
-                self._entry((b1, b2) + sig + (bs,), (batch.graph1, batch.graph2))
+                self._run_placed("forward", (b1, b2) + sig + (bs,),
+                                 self._effective_placement(b1, b2, bs),
+                                 (batch.graph1, batch.graph2), capture_only=True)
+
+    # -- the group's dispatches ---------------------------------------------
+
+    def _place(self, op: str, key: Tuple, placement: str, inputs: Tuple,
+               capture_only: bool = False):
+        """Prepare one dispatch of ``op`` at ``key`` (its graph-cache key
+        without the topology): on a mesh engine's rank 0, announce it to the
+        ranks it involves (``serving/group.py``). Returns (graph-cache key,
+        this rank's inputs, function, model, whether other ranks take
+        part). The caller holds ``_exec_lock``. A pair key whose rows do
+        not split raises ``BatchExecutionError(stage="compile")`` before
+        anything is sent; a group that lost a rank, stage ``dispatch``."""
+        fn, model = FORWARDS[op], self.model
+        group = self.group
+        if group is None:
+            return key, inputs, fn, model, False
+        full = key + (self._mesh_shape, placement)
+        if placement == "pair" and full not in self._entries:
+            l1, l2 = key[1:3] if key[0] == "dec" else key[:2]
+            try:
+                self._pair_model.pair_row_slices(l1, l2, group.mesh.pair)
+            except ValueError as exc:
+                raise BatchExecutionError(f"{self._label(full)}: {exc}",
+                                          stage="compile") from exc
+        sent = len(group.ranks_for(placement)) > 1
+        if group.is_leader:
+            try:
+                inputs = group.announce(op, key, placement, inputs, capture_only)
+            except GroupLost as exc:
+                raise BatchExecutionError(str(exc), stage="dispatch") from exc
+        if placement == "data":
+            inputs = local_part(inputs, group.mesh.data_rank, group.mesh.num_data)
+            fn = data_placed(fn, group.mesh)
+        elif placement == "pair":
+            fn, model = pair_placed(fn, group.mesh.pair), self._pair_model
+        return full, inputs, fn, model, sent
+
+    def _lose(self, sent: bool, what: str, exc: BaseException) -> None:
+        """After a failure past the announcement, the group's collectives
+        are out of step: rank 0 gives the group up (the worker exits)."""
+        if sent and self.group is not None and self.group.is_leader:
+            self.group.fail(f"{what} failed after its dispatch was announced: {exc}")
+
+    def _placed_entry(self, op: str, key: Tuple, placement: str, inputs: Tuple,
+                      capture_only: bool = False):
+        """:meth:`_place` and the key's entry (captured if cold): returns
+        (entry, this rank's inputs, graph-cache key, whether other ranks
+        take part). The caller holds ``_exec_lock``."""
+        full, inputs, fn, model, sent = self._place(op, key, placement, inputs, capture_only)
+        try:
+            return self._entry(full, inputs, fn, model), inputs, full, sent
+        except Exception as exc:
+            self._lose(sent, f"capture of {self._label(full)}", exc)
+            raise
+
+    def _run_placed(self, op: str, key: Tuple, placement: str, inputs: Tuple,
+                    capture_only: bool = False):
+        """One whole dispatch (:meth:`_placed_entry`, then its replay): the
+        output (the whole batch's on rank 0), or the entry with
+        ``capture_only``. The caller holds ``_exec_lock``; a follower runs
+        the same call for each header that involves it."""
+        entry, inputs, full, sent = self._placed_entry(op, key, placement, inputs, capture_only)
+        if capture_only:
+            return entry
+        try:
+            return entry.replay(*inputs)
+        except Exception as exc:
+            self._lose(sent, f"dispatch of {self._label(full)}", exc)
+            raise
 
     # -- split phase (bulk screening) --------------------------------------
     #
@@ -352,28 +588,39 @@ class InferenceEngine:
         """The entry of one chain-bucket encode over a ``[slots, bucket,
         ...]`` stacked graph batch (``sig``: knn, geo, node and edge
         feature widths); its replay gives ``[slots, bucket, C]`` float32
-        features. Captured once per key from ``graph_batch``."""
+        features. Captured once per key from ``graph_batch``. On a mesh
+        the encoder (no pair map) splits slots over the data axis when D
+        divides them, else runs replicated."""
+        key = ("enc", int(bucket), tuple(sig), int(slots))
+        placement = ("single" if self.group is None else
+                     "data" if slots % self._mesh_shape[0] == 0 else "repl")
         with self._exec_lock:
-            return self._entry(("enc", int(bucket), tuple(sig), int(slots)),
-                               (graph_batch,), encode_forward)
+            self._run_placed("encode", key, placement, (graph_batch,), capture_only=True)
+        return PlacedEntry("encode", key, placement)
 
     def decode_executable(self, b1: int, b2: int, slots: int, args: Tuple):
         """The entry of one (bucket1, bucket2, slots) decode; ``args`` is
         (feats1 [slots, b1, C] float32, feats2, mask1 [slots, b1] bool,
         mask2) at the padded shapes. Its replay gives ``[slots, b1, b2]``
         probabilities; over-bucket pairs decode tiled, as
-        ``DeepInteract.decode`` does."""
+        ``DeepInteract.decode`` does. On a mesh the placement is
+        :meth:`_effective_placement`'s (``pair`` row-shards the decode)."""
+        key = ("dec", int(b1), int(b2), int(slots))
+        args = tuple(map(_as_tensor, args))
+        placement = self._effective_placement(b1, b2, slots)
         with self._exec_lock:
-            return self._entry(("dec", int(b1), int(b2), int(slots)),
-                               tuple(map(_as_tensor, args)), decode_forward)
+            self._run_placed("decode", key, placement, args, capture_only=True)
+        return PlacedEntry("decode", key, placement)
 
     def replay_to_host(self, entry, *inputs) -> np.ndarray:
         """Replay a split-phase entry on ``inputs`` and copy its output to
         the host under the exec lock: entries share one memory pool, so an
-        output is valid only until the next replay of any key."""
+        output is valid only until the next replay of any key. On a mesh
+        the replay is a dispatch of the group's protocol."""
         inputs = tuple(x if isinstance(x, ProteinGraph) else _as_tensor(x) for x in inputs)
         with self._exec_lock:
-            return entry.replay(*inputs).cpu().numpy()
+            return self._run_placed(entry.op, entry.key, entry.placement,
+                                    inputs).cpu().numpy()
 
     # -- request path ------------------------------------------------------
 
@@ -502,17 +749,21 @@ class InferenceEngine:
         pad_slots = slots - len(items)
         t_assembled = time.perf_counter()
         with self._exec_lock:
-            entry = self._entry(tuple(bucket_key) + (slots,), (batch.graph1, batch.graph2))
+            entry, inputs, key, sent = self._placed_entry(
+                "forward", tuple(bucket_key) + (slots,),
+                self._effective_placement(b1, b2, slots), (batch.graph1, batch.graph2))
             t_compiled = time.perf_counter()
             try:
                 faults.maybe_raise(
                     "serving.dispatch",
                     lambda: BatchExecutionError("injected device-dispatch fault",
                                                 stage="dispatch"))
-                probs = entry.replay(batch.graph1, batch.graph2).cpu().numpy()
-            except BatchExecutionError:
+                probs = entry.replay(*inputs).cpu().numpy()
+            except BatchExecutionError as exc:
+                self._lose(sent, f"dispatch of {self._label(key)}", exc)
                 raise
             except Exception as exc:
+                self._lose(sent, f"dispatch of {self._label(key)}", exc)
                 # Typed so clients can tell "your batch died" from "your
                 # upload was bad"; the scheduler fails ONLY this group.
                 raise BatchExecutionError(
@@ -566,17 +817,40 @@ class InferenceEngine:
         accepting. False = the drain timed out with work still in flight."""
         return self.scheduler.drain(timeout=timeout)
 
+    def stop_group(self) -> None:
+        """Rank 0 of a mesh engine, after the drain: end every follower's
+        loop, between dispatches (later ones raise). No-op elsewhere."""
+        if self.group is not None and self.group.is_leader:
+            with self._exec_lock:
+                self.group.stop()
+
+    def release_graphs(self) -> None:
+        """Drop every entry and its CUDA graph, and wait for the device: a
+        mesh rank does so before its group's communicators are destroyed,
+        since NCCL holds a communicator until the graphs that captured it
+        are gone."""
+        with self._exec_lock:
+            self._entries.clear()
+            with self._labels_lock:
+                self._warm_labels = ()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def stats(self) -> Dict[str, Any]:
         with self._exec_lock:
-            entries = {self._key_label(key): entry for key, entry in self._entries.items()}
-            compiled = {label: entry.seconds for label, entry in entries.items()}
+            entries = {self._label(key): (key, entry) for key, entry in self._entries.items()}
+            compiled = {label: entry.seconds for label, (_, entry) in entries.items()}
             inventory = {label: {
                 "seconds": round(entry.seconds, 3),
                 "replays": entry.replays,
                 "k1_launches": entry.k1_launches,
                 "k2_launches": entry.k2_launches,
                 "csr_builds": entry.csr_builds,
-            } for label, entry in entries.items()}
+                "all_reduces": dict(entry.all_reduces),
+                "mesh_shape": mesh_label(self._mesh_shape),
+                "placement": self._placement_of_key(key),
+            } for label, (key, entry) in entries.items()}
             capture_count = self.capture_count
             executed_batches = self._executed_batches
             executed_requests = self._executed_requests
@@ -586,6 +860,11 @@ class InferenceEngine:
             "restored_from": self.restored_from,
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else str(self.device)),
+            "mesh_shape": self.mesh_shape_label(),
+            "group": (None if self.group is None else {
+                "ranks": self.group.world, "pids": self.group.pids(),
+                "shard_pair_map": self.cfg.shard_pair_map,
+                "pair_shard_threshold": self.cfg.pair_shard_threshold}),
             "interaction_stem": self.model.cfg.interaction_stem,
             "compute_dtype": {
                 "gnn": self.model.cfg.gnn.compute_dtype,

@@ -232,7 +232,8 @@ def batch_slots(n_requests: int, max_batch: int,
     ``lift_to`` raises the floor (rounded up to a power of two): a
     data-parallel mesh worker lifts slots to its data-axis size so every
     device holds at least one sample; the ``max_batch`` cap still wins.
-    The port's engine serves one device, so it always passes 1.
+    A mesh engine passes its data axis D, except for ``pair`` buckets
+    (``InferenceEngine._batch_slots``).
     """
     slots = 1 << (max(1, int(n_requests)) - 1).bit_length()
     floor = 1 << (max(1, int(lift_to)) - 1).bit_length()
@@ -289,14 +290,16 @@ def mesh_label_prefix(shape) -> str:
 
 
 def mesh_placement(shape, bucket1: int, bucket2: int,
-                   pair_threshold: int) -> str:
+                   pair_threshold: int, shard_pair_map: bool = False) -> str:
     """Placement policy for one bucket on one worker topology:
 
     * ``"single"`` — no mesh (shape ``(1, 1)``): one-device graph
-      entries (the only placement this port's engine serves).
+      entries.
     * ``"pair"`` — the mesh has a pair axis and the bucket's longer side
       reaches ``pair_threshold``: one huge complex row-shards across
       chips (latency scaling for p512+ antibody/spike-scale maps).
+      ``shard_pair_map`` (a port-only flag) gives a pair axis of one the
+      same placement, over one pair rank.
     * ``"data"`` — everything else on a mesh: batch slots shard over the
       data axis (throughput scaling for small-bucket traffic).
 
@@ -304,11 +307,11 @@ def mesh_placement(shape, bucket1: int, bucket2: int,
     router's topology-aware routing share ONE policy.
     """
     data, pair = parse_mesh_shape(shape)
+    huge = pair_threshold > 0 and max(int(bucket1), int(bucket2)) >= pair_threshold
+    if huge and (pair > 1 or shard_pair_map):
+        return "pair"
     if (data, pair) == (1, 1):
         return "single"
-    if pair > 1 and pair_threshold > 0 and \
-            max(int(bucket1), int(bucket2)) >= pair_threshold:
-        return "pair"
     return "data"
 
 

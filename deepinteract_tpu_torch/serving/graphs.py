@@ -30,7 +30,15 @@ eager PyTorch's one Python dispatch per op. What a capture bakes in:
   launch counters (``edge_attention_forward.launches``,
   ``edge_attention_backward.launches``, ``in_edge_csr.builds``) run at
   capture, not at replay: an entry records the counts of its capture, and
-  ``replays`` counts its replays.
+  ``replays`` counts its replays. So does ``parallel.mesh.ALL_REDUCES``:
+  an entry's ``all_reduces`` are the collectives, by site, baked into
+  its graph.
+* **collectives** (a mesh worker, ``serving/group.py``): the ``data``
+  placement's function (:func:`data_placed`) gathers its slots over the
+  data group and the ``pair`` placement's (:func:`pair_placed`) decodes
+  the rank's rows with their halos and pair statistics and gathers the
+  rows; NCCL captures both, so one replay on every involved rank, in the
+  same order, is one dispatch.
 
 Warm-up runs on a side stream precede each capture, as PyTorch requires
 (cuBLAS and cuDNN set up their workspaces there, and K1's library is
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Dict
 
 import torch
 
@@ -61,6 +70,8 @@ from deepinteract_tpu_torch.data.graph import ProteinGraph
 from deepinteract_tpu_torch.device import graph_capture
 from deepinteract_tpu_torch.models.policy import set_backend_precision
 from deepinteract_tpu_torch.ops import cuda_attention
+from deepinteract_tpu_torch.parallel.mesh import ALL_REDUCES
+from deepinteract_tpu_torch.parallel.pair import pair_sharded
 
 WARMUP_RUNS = 2  # eager runs on a side stream before each capture
 
@@ -86,6 +97,37 @@ def decode_forward(model, feats1: torch.Tensor, feats2: torch.Tensor,
     return torch.softmax(model.decode(feats1, feats2, mask1, mask2), dim=-1)[..., 1]
 
 
+def _length(x) -> int:
+    return int((x.node_feats if isinstance(x, ProteinGraph) else x).shape[1])
+
+
+def data_placed(fn, mesh):
+    """``fn`` on this data rank's slots, its output gathered over the data
+    group of ``mesh`` (``slot_gather``): every involved rank ends with the
+    whole batch's output, in slot order."""
+    def run(model, *inputs):
+        return mesh.gather_slots(fn(model, *inputs))
+    return run
+
+
+def pair_placed(fn, pair):
+    """``fn`` of a ``shard_pair_map`` model on this rank's rows of the pair
+    map, inside ``pair_sharded(pair)``, the rows gathered whole over the
+    pair group (``pair_gather``). The first two inputs give the map's
+    lengths (graphs, or features)."""
+    def run(model, *inputs):
+        with pair_sharded(pair):
+            rows = fn(model, *inputs)
+        blocks = len(model.pair_row_slices(_length(inputs[0]), _length(inputs[1]), pair))
+        return pair.gather_rows(rows, blocks)
+    return run
+
+
+def _moved(before: Dict[str, int]) -> Dict[str, int]:
+    return {site: n - before.get(site, 0) for site, n in ALL_REDUCES.items()
+            if n != before.get(site, 0)}
+
+
 def _to_static(x, device):
     if isinstance(x, ProteinGraph):
         return ProteinGraph(**{f.name: getattr(x, f.name).to(device, copy=True)
@@ -106,7 +148,8 @@ def _copy_into(static, new) -> None:
 
 class EagerEntry:
     """A key on the CPU: no capture (``seconds`` is 0); each replay runs
-    ``fn(model, *inputs)`` eagerly."""
+    ``fn(model, *inputs)`` eagerly. ``all_reduces`` are the collectives of
+    its first replay, by site."""
 
     def __init__(self, model, fn=serve_forward):
         self.model = model
@@ -115,11 +158,15 @@ class EagerEntry:
         self.k1_launches = 0
         self.k2_launches = 0
         self.csr_builds = 0
+        self.all_reduces: Dict[str, int] = {}
         self.replays = 0
 
     def replay(self, *inputs) -> torch.Tensor:
+        before = dict(ALL_REDUCES)
         with torch.inference_mode():
             out = self.fn(self.model, *inputs)
+        if not self.replays:
+            self.all_reduces = _moved(before)
         self.replays += 1
         return out
 
@@ -133,8 +180,9 @@ class GraphEntry:
     they size the static buffers and feed the warm-up runs. ``fn`` is
     :func:`serve_forward` (a request key), :func:`encode_forward` or
     :func:`decode_forward` (the split phase). ``seconds`` is the capture
-    wall (warm-up runs and capture); ``k1_launches``, ``k2_launches`` and
-    ``csr_builds`` are the counters' moves during the capture alone."""
+    wall (warm-up runs and capture); ``k1_launches``, ``k2_launches``,
+    ``csr_builds`` and ``all_reduces`` (by site) are the counters' moves
+    during the capture alone."""
 
     def __init__(self, model, inputs: tuple, pool, fn=serve_forward):
         device = next(model.parameters()).device
@@ -155,12 +203,14 @@ class GraphEntry:
         k1 = cuda_attention.edge_attention_forward.launches
         k2 = cuda_attention.edge_attention_backward.launches
         builds = cuda_attention.in_edge_csr.builds
+        reduces = dict(ALL_REDUCES)
         self.graph = torch.cuda.CUDAGraph()
         with torch.inference_mode(), graph_capture(self.graph, pool):
             self.output = fn(model, *self.static)
         self.k1_launches = cuda_attention.edge_attention_forward.launches - k1
         self.k2_launches = cuda_attention.edge_attention_backward.launches - k2
         self.csr_builds = cuda_attention.in_edge_csr.builds - builds
+        self.all_reduces = _moved(reduces)
         self.seconds = time.perf_counter() - t0
         self.replays = 0
 

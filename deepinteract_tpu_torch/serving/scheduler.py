@@ -77,7 +77,11 @@ class MicroBatchScheduler:
     ``admission`` (optional) bounds the queues; ``on_expired(payload,
     deadline) -> Exception`` (optional) lets the owner build the typed
     failure for a deadline-swept entry (the engine attaches the request's
-    trace decomposition there)."""
+    trace decomposition there). ``flush_quantum`` (clamped into [1,
+    max_batch]) flushes a group once it holds that many requests, below
+    ``max_batch`` and before ``max_delay_ms``: a mesh engine sets it to its
+    data axis, whose slot floor pads a smaller group to that size anyway.
+    """
 
     def __init__(
         self,
@@ -86,11 +90,13 @@ class MicroBatchScheduler:
         max_delay_ms: float = 5.0,
         admission: Optional[AdmissionController] = None,
         on_expired: Optional[Callable[[Any, Deadline], Exception]] = None,
+        flush_quantum: int = 1,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self._flush_fn = flush_fn
         self.max_batch = int(max_batch)
+        self.flush_quantum = max(1, min(int(flush_quantum), self.max_batch))
         self.max_delay_s = max(0.0, float(max_delay_ms)) / 1e3
         self.admission = admission
         self._on_expired = on_expired
@@ -209,7 +215,9 @@ class MicroBatchScheduler:
                     del self._pending[key]
                     continue
                 deadline = q[0][2] + self.max_delay_s
-                if len(q) >= self.max_batch or now >= deadline or self._closed:
+                if (len(q) >= self.max_batch or now >= deadline
+                        or (self.flush_quantum > 1 and len(q) >= self.flush_quantum)
+                        or self._closed):
                     # Oldest-deadline-first across READY buckets.
                     if ready_key is None or deadline < ready_deadline:
                         ready_key, ready_deadline = key, deadline

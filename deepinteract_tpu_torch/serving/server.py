@@ -35,8 +35,9 @@ Endpoints:
   (``deepinteract_tpu_torch.assembly``): C(k, 2) pairs count against
   ``screen_max_pairs``.
 * ``GET /healthz`` — status (``ok`` / ``overloaded`` / ``draining``), the
-  served weights' identity, the warm graph inventory and the in-flight
-  count (what the fleet router and autoscaler read).
+  served weights' identity, the worker's mesh (``"DxP"``), the warm graph
+  inventory and the in-flight count (what the fleet router and
+  autoscaler read).
 * ``GET /stats`` — queue depth, per-bucket graph inventory, result-cache
   hit rate, request-latency percentiles, the shedder's state and a
   ``screening`` block (``/screen`` request counts, the shared embedding
@@ -302,7 +303,7 @@ class ServingServer:
                         "draining": draining,
                         "degraded": degraded,
                         "weights_signature": server.engine.weights_signature(),
-                        "mesh_shape": "1x1",
+                        "mesh_shape": server.engine.mesh_shape_label(),
                         "warm_buckets": server.engine.warm_bucket_labels(),
                         # The autoscaler's queue-depth signal, cached by the
                         # fleet supervisor's probe of this route.

@@ -781,15 +781,18 @@ def test_serve_cli_stub_fleet_contracts(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh_shape", "2x1"],
-    ["--mesh_shape", "1x4", "--workers", "2"],
+    ["--mesh_shape", "64x64"],
+    ["--mesh_shape", "64x64", "--workers", "2"],
 ])
 def test_engine_workers_refuse_a_mesh_shape(argv, capsys):
+    """A mesh worker is a group of one process per device: an engine
+    worker (alone or in a fleet) refuses a shape the host cannot provide,
+    before anything starts."""
     from deepinteract_tpu_torch.cli.serve import main
 
     assert main(["--device", "cpu", *argv]) == 2
     err = capsys.readouterr().err
-    assert "serves one device" in err and "ROADMAP queue 1 item 10" in err
+    assert "--mesh_shape 64x64 needs 4096 devices: this host has" in err
 
 
 def test_engine_fleet_without_a_gpu_refuses(capsys):

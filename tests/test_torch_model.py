@@ -210,8 +210,9 @@ def test_bfloat16_policy_runs_on_cpu(carried):
 
 # The training lifecycle's, the model configurations', serving's, the
 # split-phase subsystems', the fleet's, the training input path's, the
-# featurization front end's, the ops tooling's and data-parallel training's modules, named so
-# that the check below fails if one of them stops being importable on its own.
+# featurization front end's, the ops tooling's, data-parallel training's and the
+# serving mesh's modules, named so that the check below fails if one of them stops
+# being importable on its own.
 LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "robustness.faults", "robustness.artifacts", "robustness.preemption",
     "training.checkpoint", "training.lr_finder", "cli.test",
@@ -231,7 +232,8 @@ LIFECYCLE_MODULES = tuple(f"deepinteract_tpu_torch.{m}" for m in (
     "pipeline.pdb", "pipeline.native", "pipeline.residue_features", "pipeline.postprocess",
     "pipeline.pair", "data.analysis", "data.convert", "cli.build_dataset", "cli.analyze",
     "obs.device", "obs.attribution", "obs.kernelquery", "cli.attribute", "cli.fsck",
-    "parallel.multihost", "parallel.mesh", "parallel.train", "parallel.pair"))
+    "parallel.multihost", "parallel.mesh", "parallel.train", "parallel.pair",
+    "parallel.launch", "serving.group"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -240,7 +242,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import deepinteract_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke, pair_shard_check\n"
+        "import chip_smoke, pair_shard_check, serve_mesh_check\n"
         f"missing = [m for m in {LIFECYCLE_MODULES!r} if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax'))"

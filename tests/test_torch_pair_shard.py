@@ -482,15 +482,16 @@ def _lone_pair(size=2):
 
 
 def test_unshardable_configurations_raise():
-    """DeepLab, rows that the pair axis does not divide and shards narrower
-    than the decoder's halo raise (naming ROADMAP 10c); a sharded model
-    without a pair mesh raises instead of decoding unsharded."""
-    with pytest.raises(ValueError, match="DeepLab.*10c"):
+    """DeepLab (naming its ROADMAP item), rows that the pair axis does not
+    divide and shards narrower than the decoder's halo raise (each saying
+    what to change); a sharded model without a pair mesh raises instead of
+    decoding unsharded."""
+    with pytest.raises(ValueError, match="DeepLab.*queue 1 item 2"):
         port_cfg(interact_module_type="deeplab", shard_pair_map=True)
     model = DeepInteract(dataclasses.replace(_port_cfg(), shard_pair_map=True))
-    with pytest.raises(ValueError, match="do not split over 3.*10c"):
+    with pytest.raises(ValueError, match="do not split over 3.*pair axis that divides"):
         model.pair_row_slices(32, 32, _lone_pair(3))
-    with pytest.raises(ValueError, match="narrower than the decoder's halo of 8.*10c"):
+    with pytest.raises(ValueError, match="narrower than the decoder's halo of 8.*fewer pair"):
         model.pair_row_slices(32, 32, _lone_pair(8))  # 4 rows, dilation 8
     tiled = DeepInteract(dataclasses.replace(_port_cfg(), shard_pair_map=True,
                                              tile_pair_map=True, tile_size=32))
